@@ -1,0 +1,85 @@
+"""2D dynamics (interaction-profile) network — port of
+``dgdm_tpu/models/profile2d.py`` (the reference ``ProfileForward2DModel``,
+``dynamics/profile_forward_2d.py:78-156``): MLP encoders for the gripper
+y-vector and the flattened object contour, NeRF embeddings of the pose, a
+sinusoidal timestep embedding through a SiLU MLP, then a Linear + BatchNorm +
+ReLU trunk and a linear head predicting the whitened (dtheta, dx, dy).
+
+``encode_object``/``trunk`` are separate so guidance encodes each object
+once. BatchNorm: flax ``momentum=0.9`` is torch ``momentum=0.1``; in
+inference (``eval()``) only the running statistics matter.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from dgdm_tpu_torch.models.embeddings import (
+    nerf_embed,
+    nerf_embed_dim,
+    timestep_embedding,
+)
+
+
+class MLP2(nn.Module):
+    def __init__(self, in_ch: int, width: int, act: str = "relu"):
+        super().__init__()
+        self.fc0 = nn.Linear(in_ch, width)
+        self.fc1 = nn.Linear(width, width)
+        self.act = act
+
+    def forward(self, x):
+        x = self.fc0(x)
+        x = F.relu(x) if self.act == "relu" else F.silu(x)
+        return self.fc1(x)
+
+
+class ProfileForward2D(nn.Module):
+    """Inputs (all normalized like dynamics/dataloader.py):
+    ctrl (B, params_ch) finger y-vector in [-1, 1],
+    ori (B, 1) = theta/pi - 1, pos (B, 2) = pos/0.03,
+    t (B,) rescaled timestep in [0, 1],
+    obj (B, object_ch) flattened contour in [-1, 1].
+    """
+
+    def __init__(self, width: int = 256, params_ch: int = 14,
+                 object_ch: int = 200, output_ch: int = 3, multires: int = 4,
+                 num_trunk: int = 8):
+        super().__init__()
+        w = width
+        self.width, self.multires = w, multires
+        self.gripper_encoder = MLP2(params_ch, w, "relu")
+        self.object_encoder = MLP2(object_ch, w, "relu")
+        self.time_in = nn.Linear(w // 2, w)
+        self.time_out = nn.Linear(w, w)
+        trunk_in = 3 * w + nerf_embed_dim(1, multires) + nerf_embed_dim(
+            2, multires)
+        self.trunk_layers = nn.ModuleList(
+            [nn.Linear(trunk_in if i == 0 else w, w) for i in range(num_trunk)])
+        # flax BatchNorm(momentum=0.9) == torch momentum 0.1; eps 1e-5 both
+        self.trunk_bns = nn.ModuleList(
+            [nn.BatchNorm1d(w, momentum=0.1, eps=1e-5)
+             for _ in range(num_trunk)])
+        self.head = nn.Linear(w, output_ch)
+
+    def forward(self, ctrl, ori, pos, t, obj):
+        return self.trunk(ctrl, ori, pos, t, self.encode_object(obj))
+
+    def encode_object(self, obj):
+        """Object geometry -> (..., W) feature."""
+        return self.object_encoder(obj)
+
+    def trunk(self, ctrl, ori, pos, t, obj_feat):
+        x_ctrl = self.gripper_encoder(ctrl)
+        x_ori = nerf_embed(ori, self.multires)
+        x_pos = nerf_embed(pos, self.multires)
+        t_emb = timestep_embedding(t, self.width // 2)
+        t_emb = self.time_out(F.silu(self.time_in(t_emb)))
+        if obj_feat.shape[:-1] != x_ctrl.shape[:-1]:
+            obj_feat = obj_feat.expand(*x_ctrl.shape[:-1], obj_feat.shape[-1])
+        x = torch.cat([obj_feat, x_ctrl, x_ori, x_pos, t_emb], dim=-1)
+        for dense, bn in zip(self.trunk_layers, self.trunk_bns):
+            x = F.relu(bn(dense(x)))
+        return self.head(x)

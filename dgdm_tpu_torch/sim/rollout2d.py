@@ -1,0 +1,260 @@
+"""2D squeeze rollouts on the card — port of ``dgdm_tpu/sim/pallas2d.py``.
+
+``profile_batch`` takes the dense per-pair arrays of ``scene_arrays`` and a
+shared pose batch and runs every (pair, pose) rollout for all steps:
+
+- on CUDA tensors it launches the hand-written kernel
+  ``dgdm_tpu_torch/csrc/rollout2d.cu`` (built with ``nvcc`` for ``sm_90a`` on
+  first use into ``dgdm_tpu_torch/_build/`` and bound with ctypes);
+- on CPU tensors it runs the plain PyTorch version
+  (``sim/rollout2d_ref.py``).
+
+There is no fallback between the two: a CUDA tensor launches the kernel or
+raises. ``KERNEL_LAUNCHES["rollout2d"]`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import warnings
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from dgdm_tpu_torch.core.config import GRIPPER_2D, SIM
+from dgdm_tpu_torch.sim import engine2d
+from dgdm_tpu_torch.sim.rollout2d_ref import (
+    EPS_SETTLED,
+    LANE,
+    N_SCALARS,
+    profile_batch_ref,
+)
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG, "csrc", "rollout2d.cu")
+_BUILD = os.path.join(_PKG, "_build")
+NVCC_FLAGS = (
+    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# kernel launches per wrapper, for showing that a run went through them
+KERNEL_LAUNCHES = {"rollout2d": 0}
+
+
+class _Params(ctypes.Structure):
+    """Mirror of ``Rollout2DParams`` in csrc/rollout2d.cu."""
+
+    _fields_ = [(k, ctypes.c_int) for k in
+                ("steps", "regrasp_every", "snapshot_step", "newton_iters")] + [
+        (k, ctypes.c_float) for k in
+        ("dt", "ctrl_l", "ctrl_r", "x0f", "x1f", "h", "inv_h", "surf_l0",
+         "surf_r0", "kp", "damping", "plane_z", "gravity", "k_plane",
+         "b_plane", "depth_el_cap", "impedance", "eps_settled", "marg")]
+
+
+class _Library:
+    """Build-on-first-use loader of the rollout kernel's shared library."""
+
+    def __init__(self):
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+        self.build_log = ""
+
+    @staticmethod
+    def nvcc() -> str:
+        home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+        for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+                "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]:
+            if cand and os.path.exists(cand):
+                return cand
+        raise RuntimeError("nvcc not found: the rollout kernel builds with the "
+                           "CUDA toolkit (set CUDA_HOME)")
+
+    def path(self) -> str:
+        with open(_SRC, "rb") as f:
+            digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+        return os.path.join(_BUILD, f"librollout2d_{digest.hexdigest()[:12]}.so")
+
+    def build(self) -> str:
+        """Compile csrc/rollout2d.cu unless this source's library exists."""
+        so = self.path()
+        if os.path.exists(so):
+            return so
+        os.makedirs(_BUILD, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            [self.nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
+            capture_output=True, text=True,
+        )
+        self.build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {_SRC}:\n{self.build_log}")
+        os.replace(tmp, so)
+        return so
+
+    def get(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(self.build())
+                p = ctypes.c_void_p
+                lib.rollout2d_launch.argtypes = [p] * 6 + [ctypes.c_int] * 4 + [
+                    _Params, p]
+                lib.rollout2d_launch.restype = ctypes.c_int
+                self._lib = lib
+            return self._lib
+
+
+LIBRARY = _Library()
+
+
+def _params(steps, regrasp_every, snapshot_step) -> _Params:
+    g = GRIPPER_2D
+    h = (g.ctrl_x_max - g.ctrl_x_min) / (g.num_ctrl - 1)
+    ctrl_l = min(SIM.ctrl_2d, g.ctrl_clamped)
+    return _Params(
+        steps=steps, regrasp_every=regrasp_every, snapshot_step=snapshot_step,
+        newton_iters=engine2d.NEWTON_ITERS, dt=SIM.dt, ctrl_l=ctrl_l,
+        ctrl_r=-ctrl_l,
+        x0f=g.ctrl_x_min, x1f=g.ctrl_x_max, h=h, inv_h=1.0 / h,
+        surf_l0=-g.jaw_offset + g.width, surf_r0=g.jaw_offset, kp=g.kp,
+        damping=g.joint_damping, plane_z=SIM.plane_z, gravity=SIM.gravity,
+        k_plane=engine2d.K_PLANE, b_plane=engine2d.B_PLANE,
+        depth_el_cap=engine2d.DEPTH_EL_CAP, impedance=engine2d.IMPEDANCE,
+        eps_settled=EPS_SETTLED, marg=1e-4,
+    )
+
+
+def _check_inputs(coefs, contour, support, scalars, poses):
+    b = coefs.shape[0]
+    if coefs.shape != (b, 2, 6, 4):
+        raise ValueError(f"coefs must be (B, 2, 6, 4), got {tuple(coefs.shape)}")
+    if contour.ndim != 3 or contour.shape[0] != b or contour.shape[2] != 2:
+        raise ValueError(f"contour must be (B, P, 2), got {tuple(contour.shape)}")
+    if support.ndim != 3 or support.shape[0] != b or support.shape[2] != 4:
+        raise ValueError(f"support must be (B, S, 4), got {tuple(support.shape)}")
+    if scalars.shape != (b, 1, N_SCALARS):
+        raise ValueError(f"scalars must be (B, 1, 16), got {tuple(scalars.shape)}")
+    if poses.ndim != 2 or poses.shape[1] != 3 or poses.shape[0] % LANE:
+        raise ValueError(f"poses must be (N, 3) with N % {LANE} == 0, "
+                         f"got {tuple(poses.shape)}")
+    devs = {t.device for t in (coefs, contour, support, scalars, poses)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs lie on several devices: {devs}")
+    for t in (coefs, contour, support, scalars, poses):
+        if t.dtype != torch.float32:
+            raise TypeError(f"rollout inputs must be float32, got {t.dtype}")
+
+
+def rollout_cuda(coefs, contour, support, scalars, poses, steps,
+                 regrasp_every, snapshot_step):
+    """Launch csrc/rollout2d.cu on the current stream -> (8, B, N) float32."""
+    lib = LIBRARY.get()
+    ins = [t.contiguous() for t in (coefs, contour, support, scalars, poses)]
+    b, p, s, n = coefs.shape[0], contour.shape[1], support.shape[1], \
+        poses.shape[0]
+    out = torch.empty((8, b, n), dtype=torch.float32, device=poses.device)
+    stream = torch.cuda.current_stream(poses.device).cuda_stream
+    err = lib.rollout2d_launch(
+        *[t.data_ptr() for t in ins], out.data_ptr(), b, p, s, n,
+        _params(steps, regrasp_every, snapshot_step), stream)
+    if err != 0:
+        raise RuntimeError(f"rollout2d kernel launch failed: CUDA error {err}")
+    KERNEL_LAUNCHES["rollout2d"] += 1
+    return out
+
+
+def rollout(coefs, contour, support, scalars, poses,
+            steps: int = SIM.steps_2d, regrasp_every: int = 0,
+            snapshot_step: int = 0) -> Tuple[torch.Tensor, ...]:
+    """The 8 raw (B, N) outputs: dtheta, dpx, dpy (snapshot), final theta,
+    final x, final y, full-solve and cheap-solve step counts per block."""
+    _check_inputs(coefs, contour, support, scalars, poses)
+    if poses.device.type == "cuda":
+        return tuple(rollout_cuda(coefs, contour, support, scalars, poses,
+                                  steps, regrasp_every, snapshot_step))
+    if poses.device.type == "cpu":
+        return profile_batch_ref(coefs, contour, support, scalars, poses,
+                                 steps=steps, regrasp_every=regrasp_every,
+                                 snapshot_step=snapshot_step)
+    raise ValueError(f"no rollout path for device {poses.device}")
+
+
+def profile_batch(coefs, contour, support, scalars, poses,
+                  steps: int = SIM.steps_2d, regrasp_every: int = 0,
+                  snapshot_step: int = 0):
+    """Fused rollouts: (B pairs) x (N poses) -> (dtheta (B, N),
+    dpos (B, N, 2), final_theta (B, N), final_pos (B, N, 2)); ``rollout``
+    also returns the (full, cheap) solve counts per block.
+
+    ``snapshot_step`` > 0 records dtheta/dpos at that step (the first-squeeze
+    profile of the eval schedule) while the rollout continues to ``steps``;
+    0 snapshots at the end (datagen). The contact solver is the coupled
+    Newton solve (the JAX package's default, ``engine2d.SOLVER``); its
+    ``solver="jacobi"`` is not ported yet."""
+    dth, dpx, dpy, fth, fpx, fpy, _, _ = rollout(
+        coefs, contour, support, scalars, poses, steps=steps,
+        regrasp_every=regrasp_every, snapshot_step=snapshot_step)
+    return (dth, torch.stack([dpx, dpy], dim=-1), fth,
+            torch.stack([fpx, fpy], dim=-1))
+
+
+def scene_arrays(scenes, calib: Optional[engine2d.Calib] = None,
+                 device="cuda") -> Tuple[torch.Tensor, ...]:
+    """Stacked Scene2D (leading dim B) -> the dense float32 inputs of
+    ``profile_batch`` on ``device``: coefs (B, 2, 6, 4), contour (B, P, 2),
+    support (B, S, 4), scalars (B, 1, 16). ``calib`` rides in the scalar
+    slots (layout: dgdm_tpu/sim/pallas2d.py:scene_arrays)."""
+    if calib is None:
+        calib = engine2d.default_calib()
+    anc = scenes.anchor.numpy()
+    if anc.ndim and anc.shape[-1] > 1 and not np.allclose(anc, 1.0):
+        warnings.warn(
+            "scene_arrays: non-uniform Scene2D.anchor is ignored by the "
+            "rollout kernel", stacklevel=2)
+    coefs = np.stack([scenes.coef_l.numpy(), scenes.coef_r.numpy()], axis=1)
+    spts = scenes.support_pts.numpy()
+    b, s_ = spts.shape[:2]
+    support = np.concatenate(
+        [spts, scenes.support_w.numpy()[..., None],
+         np.zeros((b, s_, 1), np.float32)], axis=-1)
+    com = scenes.com.numpy()
+    fmass = scenes.finger_mass.numpy()
+    scal = np.zeros((b, 1, N_SCALARS), np.float32)
+    scal[:, 0, 0] = scenes.mass.numpy()
+    scal[:, 0, 1] = scenes.inertia.numpy()
+    scal[:, 0, 2] = fmass[..., 0]
+    scal[:, 0, 3] = com[:, 0]
+    scal[:, 0, 4] = com[:, 1]
+    scal[:, 0, 5] = fmass[..., 1]
+    scal[:, 0, 6] = calib.mu_plane
+    scal[:, 0, 7] = calib.mu_finger
+    scal[:, 0, 8] = calib.mu_torsion
+    scal[:, 0, 9] = calib.k_contact
+    scal[:, 0, 10] = calib.b_contact
+    scal[:, 0, 11] = calib.unload
+    scal[:, 0, 12] = calib.rough
+    scal[:, 0, 13] = calib.c_r
+    # broad-phase bounds of the no-contact fast path: finger contact is
+    # impossible unless cy <= A + ql (left) or cy >= B + qr (right); A/B fold
+    # the dense-grid spline extremum (padded by 1e-3) and the object's max
+    # COM radius (conservative: ignores the x-window)
+    g = GRIPPER_2D
+    h = (g.ctrl_x_max - g.ctrl_x_min) / (g.num_ctrl - 1)
+    t = np.linspace(0.0, h, 64, dtype=np.float64)
+    vals = (coefs[..., 0:1] + coefs[..., 1:2] * t + coefs[..., 2:3] * t**2
+            + coefs[..., 3:4] * t**3)                   # (B, 2, 6, T)
+    fmax_l = vals[:, 0].max(axis=(1, 2)) + 1e-3
+    fmin_r = vals[:, 1].min(axis=(1, 2)) - 1e-3
+    rel = scenes.contour.numpy() - com[:, None, :]
+    r_max = np.sqrt((rel**2).sum(-1)).max(axis=1)
+    scal[:, 0, 14] = (-g.jaw_offset + g.width) + fmax_l + r_max   # A
+    scal[:, 0, 15] = g.jaw_offset + fmin_r - r_max                 # B
+    return tuple(torch.as_tensor(a).to(device)
+                 for a in (coefs, scenes.contour.numpy(), support, scal))
