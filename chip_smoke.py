@@ -24,13 +24,36 @@ Phases, each printing its own lines:
    are reset just before and read just after; every kernel of the path must
    have launched. One verification call of the loop (its shift_up samples
    of the first object) then runs once more, timed whole and K1 alone;
-5. times: kernel and plain version per call, rollouts/s, design sweep.
+5. kernel K2 (rollout3d), datagen schedule at full size: 8 grippers
+   ``sample_gripper_3d(0..7)`` x the fixture object ``mug_small`` (one
+   ``object_properties_3d`` shared by the block, 256 contact points, as
+   ``datagen3d.generate_3d`` builds it) x the 9,000-pose grid (padded to
+   9,088) x 800 steps, held against its plain version on the card and
+   against the golden outputs of the TPU kernel
+   (tests/fixtures/rollout3d_golden.npz) at both of its schedules;
+6. K2 at the verification shape of the 3D CLI: 16 grippers
+   ``sample_gripper_3d(100..115)`` x mug_small x 45 orientations (padded to
+   128) x 32,000 steps, regrasp and snapshot at 800, timed with CUDA events
+   beside the host work of such a call. The snapshot must equal, bitwise,
+   the kernel's own 800-step squeeze; kernel and plain version are held
+   together on a shortened eval of 2,400 steps (snapshot by the bars, the
+   final pose by corr >= 0.99 and 3-class agreement >= 0.99);
+7. the 3D design loop through ``dgdm_tpu_torch.cli.sample.main
+   --fingers_3d`` (the documented 3D command: ctrlpts 42, grid 45 x 5 x 5,
+   sub_bs 512), seeded full-width weights (UNet down_dims (128, 256);
+   ProfileForward3D width 256), B = 16, 5 DDIM steps, mug_small with a
+   512-point cloud, objectives convergence, shift_up, rotate_clockwise,
+   verification at the full 32,000 steps; K2's launch count is reset just
+   before and read just after. One verification call of the loop (its
+   shift_up samples) then runs once more, timed whole and K2 alone;
+8. times and the summary.
 
 It then prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero, without that line, if
 CUDA is missing, a kernel does not build, launch or agree, or a phase fails.
-Bars (as in tests/test_torch_rollout2d.py): >= 99% of lanes within 1e-3 and
-corr >= 0.999 for dtheta and dpos; step counters equal per 128-pose block.
+Bars (as in tests/test_torch_rollout2d.py and test_torch_rollout3d.py):
+>= 99% of lanes within 1e-3 and corr >= 0.999 for dtheta and dpos; step
+counters equal per 128-pose block; for K2 also the tip-over validity equal.
 """
 
 from __future__ import annotations
@@ -51,6 +74,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # summary.json and the design loop's guided_report.json (gitignored)
 OUT_DIR = os.path.join(ROOT, "chip_smoke_out")
 NAMES = ("dth", "dpx", "dpy", "fth", "fpx", "fpy", "cfull", "ccheap")
+MUG = os.path.join(ROOT, "tests", "fixtures", "scanned_objects", "mug_small",
+                   "model.obj")
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -75,11 +100,14 @@ def parity(out, ref, what: str, lane: int = 128) -> dict:
                     "max_abs_err": float(np.abs(a - b).max())}
         check(frac >= 0.99 and corr >= 0.999,
               f"{what}: {k} frac {frac:.5f} corr {corr:.6f}")
-    for k in ("cfull", "ccheap"):
+    for k in ("cfull", "ccheap", "citer"):
         if k in ref:
             check(np.array_equal(np.asarray(out[k])[:, ::lane],
                                  np.asarray(ref[k])[:, ::lane]),
                   f"{what}: {k} counters differ")
+    if "valid" in ref:
+        check(np.array_equal(out["valid"], ref["valid"]),
+              f"{what}: tip-over validity differs")
     print(f"  {what}: " + ", ".join(
         f"{k} {v['frac_1e-3']:.5f} within 1e-3, corr {v['corr']:.6f}, "
         f"max err {v['max_abs_err']:.3g}" for k, v in stats.items()),
@@ -87,11 +115,13 @@ def parity(out, ref, what: str, lane: int = 128) -> dict:
     return stats
 
 
-def timed_cuda(fn, reps: int):
-    """Mean ms per call over ``reps`` calls, with CUDA events."""
+def timed_cuda(fn, reps: int, warm: bool = True):
+    """Mean ms per call over ``reps`` calls, with CUDA events (after one
+    untimed call unless ``warm`` is False)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -121,10 +151,281 @@ def k1_bytes(b: int, p: int, s: int, n: int) -> int:
     return 4 * (b * (2 * 6 * 4 + 2 * p + 4 * s + 16) + 3 * n + 8 * b * n)
 
 
+def k2_view(raw, poses) -> dict:
+    """Raw K2 outputs (12 tensors) -> numpy dict of the snapshot dtheta,
+    dpx, dpy, the final theta and origin, validity and the counters."""
+    from dgdm_tpu_torch.sim.rollout3d_ref import readout
+
+    dth, sdpos, fth, valid, fpos = readout(*raw[:9], poses)
+    out = {"dth": dth, "dpx": sdpos[..., 0], "dpy": sdpos[..., 1],
+           "fth": fth, "fpx": fpos[..., 0], "fpy": fpos[..., 1],
+           "valid": valid, "cfull": raw[9], "ccheap": raw[10],
+           "citer": raw[11]}
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def k2_flops(p: int, steps: int, cfull, ccheap, citer) -> float:
+    """Operations the 3D rollouts of this run need, counted by hand from
+    the formulas of dgdm_tpu_torch/sim/rollout3d_ref.py, per lane: a normal
+    step first spans the points' wy (5 per point); a full-solve step costs
+    the contact geometry once per point (plane rows ~39, finger narrow
+    phase with two bivariate Horner evaluations ~200) and per Newton
+    iteration ~760 per point (gradient, 62 Hessian sums, 3 line-search
+    energies, the float64 accumulations counted as one operation each) plus
+    an 8x8 Cholesky solve (~400); a cheap step the plane rows (~39 per
+    point) and 3 iterations of ~175 per point plus a 6x6 solve (~200); a
+    travel step the servo update (15); every step the gates (25).
+    ``cfull``/``ccheap``/``citer`` are this run's per-lane counts."""
+    cf, cc, ci = (np.asarray(x, np.float64) for x in (cfull, ccheap, citer))
+    travel = steps - cf - cc
+    return float(np.sum(cf * (p * (5 + 239) + 100) + ci * (p * 760 + 400)
+                        + cc * (p * (5 + 39 + 3 * 175) + 3 * 200 + 100)
+                        + travel * 15 + steps * 25))
+
+
+def k2_bytes(b: int, p: int, n: int) -> int:
+    return 4 * (b * (2 * 24 * 12 + 4 * p + 32) + 3 * n + 12 * b * n)
+
+
 def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def phases_3d(dev) -> dict:
+    """Phases 5-7: kernel K2 at the datagen and verification shapes, and the
+    3D design loop. Returns the numbers for the summary."""
+    import torch
+
+    from dgdm_tpu_torch.cli import sample as sample_cli
+    from dgdm_tpu_torch.core.config import NORM, SIM
+    from dgdm_tpu_torch.eval.metrics import three_class
+    from dgdm_tpu_torch.eval.simeval3d import sim_eval_batch_3d
+    from dgdm_tpu_torch.geom import mesh3d
+    from dgdm_tpu_torch.geom.fingers import denormalize_y, sample_gripper_3d
+    from dgdm_tpu_torch.models import convert
+    from dgdm_tpu_torch.models.profile3d import ProfileForward3D
+    from dgdm_tpu_torch.models.unet1d import ConditionalUnet1D
+    from dgdm_tpu_torch.sim import datagen, engine2d, engine3d, rollout3d
+    from dgdm_tpu_torch.sim.rollout3d_ref import OUT_NAMES, profile_batch_ref
+
+    verts, faces = mesh3d.load_obj(MUG)
+    out: dict = {}
+
+    # ---- 5. K2 datagen schedule at full size ------------------------------
+    props = engine3d.object_properties_3d(verts, faces)
+    scenes8 = datagen.stack_scenes([
+        engine3d.make_scene(*sample_gripper_3d(i), verts, faces,
+                            obj_props=props) for i in range(8)])
+    arrs8 = rollout3d.scene_arrays_3d(scenes8, device=dev)
+    check(arrs8[1].shape == (8, 256, 4), "256 contact points per pair")
+    poses = torch.as_tensor(datagen.pad_poses(engine2d.pose_grid()),
+                            device=dev)
+    dg_ms, dout = timed_cuda(lambda: rollout3d.rollout(*arrs8, poses), reps=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dref = profile_batch_ref(*arrs8, poses)
+    torch.cuda.synchronize()
+    dg_plain_ms = 1e3 * (time.perf_counter() - t0)
+    do, dr = k2_view(dout, poses), k2_view(dref, poses)
+    for k, v in do.items():
+        check(v.shape == (8, 9088), f"datagen {k} shape")
+    dg_stats = parity(do, dr, "K2 datagen 8x9088x800, kernel vs plain")
+    dg_exact = float(np.mean(do["dth"] == dr["dth"]))
+    print(f"  kernel {dg_ms:.1f} ms/call ({8 * 9000 / dg_ms * 1e3:,.0f} "
+          f"rollouts/s of the 9,000-pose grid), plain {dg_plain_ms:.0f} ms; "
+          f"dtheta bitwise equal on {dg_exact:.4f} of lanes; valid "
+          f"{do['valid'].mean():.4f}; full/cheap steps per block "
+          f"{do['cfull'][:, ::128].mean():.1f}/"
+          f"{do['ccheap'][:, ::128].mean():.1f} of 800", flush=True)
+    gold = np.load(os.path.join(ROOT, "tests", "fixtures",
+                                "rollout3d_golden.npz"))
+    garrs = [torch.as_tensor(gold[k], device=dev)
+             for k in ("coefs", "points", "scalars")]
+    gposes = torch.as_tensor(gold["poses"], device=dev)
+    gold_stats = {}
+    for sched in ("datagen", "eval"):
+        steps, rg, snap = (int(v) for v in gold[f"{sched}_schedule"])
+        g_out = rollout3d.rollout(*garrs, gposes, steps=steps,
+                                  regrasp_every=rg, snapshot_step=snap)
+        g_ref = [torch.as_tensor(gold[f"{sched}_{k}"], device=dev)
+                 for k in OUT_NAMES]
+        gold_stats[sched] = parity(
+            k2_view(g_out, gposes), k2_view(g_ref, gposes),
+            f"K2 golden {sched} ({steps} steps), kernel vs TPU kernel")
+    dg_bound, dg_bound_by = bound_ms(
+        k2_flops(256, SIM.steps_3d, dout[9].cpu(), dout[10].cpu(),
+                 dout[11].cpu()), k2_bytes(8, 256, 9088))
+    out["datagen"] = {"kernel_ms": dg_ms, "plain_ms": dg_plain_ms,
+                      "bound_ms": dg_bound, "bound_by": dg_bound_by,
+                      "rollouts_per_s": 8 * 9000 / dg_ms * 1e3,
+                      "parity": dg_stats, "dtheta_bitwise_equal": dg_exact,
+                      "full_steps_per_block": float(
+                          do["cfull"][:, ::128].mean()),
+                      "cheap_steps_per_block": float(
+                          do["ccheap"][:, ::128].mean()),
+                      "golden": gold_stats}
+
+    # ---- 6. K2 at the verification shape ----------------------------------
+    # host work of one verification call (object properties, scene builds
+    # of 16 new grippers, their upload), timed beside K2
+    t0 = time.perf_counter()
+    props = engine3d.object_properties_3d(verts, faces)
+    scenes16 = datagen.stack_scenes([
+        engine3d.make_scene(*sample_gripper_3d(100 + i), verts, faces,
+                            obj_props=props) for i in range(16)])
+    arrs16 = rollout3d.scene_arrays_3d(scenes16, device=dev)
+    torch.cuda.synchronize()
+    host_scene_s = time.perf_counter() - t0
+    nrot = 45
+    thetas = (np.linspace(-1.0, 1.0, nrot) * np.pi + np.pi).astype(np.float32)
+    th_p = datagen.pad_poses(thetas[:, None])[:, 0]
+    eposes = torch.as_tensor(
+        np.stack([np.zeros_like(th_p), np.zeros_like(th_p), th_p], -1),
+        device=dev)
+    ekw = dict(regrasp_every=SIM.eval_regrasp_3d,
+               snapshot_step=SIM.eval_regrasp_3d)
+    ev_ms, eout = timed_cuda(lambda: rollout3d.rollout(
+        *arrs16, eposes, steps=SIM.eval_steps_3d, **ekw), reps=1, warm=False)
+    eo = k2_view(eout, eposes)
+    t0 = time.perf_counter()
+    classes = [[three_class(eo["dth"][i, :nrot], NORM.threshold_3d[0]),
+                three_class(eo["dpx"][i, :nrot], NORM.threshold_3d[1]),
+                three_class(eo["dpy"][i, :nrot], NORM.threshold_3d[2])]
+               for i in range(16)]
+    host_metrics_s = time.perf_counter() - t0
+    check(len(classes) == 16 and np.isfinite(eo["fth"]).all(),
+          "verify: finite final poses")
+    # the snapshot at 800 is the kernel's own 800-step squeeze, bitwise
+    sq = rollout3d.rollout(*arrs16, eposes, steps=SIM.eval_regrasp_3d)
+    for a in range(5, 9):
+        check(torch.equal(eout[a], sq[a]),
+              f"verify: snapshot {OUT_NAMES[a]} differs from the 800-step "
+              f"squeeze's")
+    ev_full = float(eo["cfull"][:, ::128].mean())
+    ev_cheap = float(eo["ccheap"][:, ::128].mean())
+    ev_flops = k2_flops(256, SIM.eval_steps_3d, eout[9].cpu(), eout[10].cpu(),
+                        eout[11].cpu())
+    ev_bound, ev_bound_by = bound_ms(ev_flops, k2_bytes(16, 256, 128))
+    print(f"  K2 verify 16x128x32000: kernel {ev_ms:.0f} ms/call; snapshot "
+          f"bitwise equal to the 800-step squeeze; full/cheap steps per "
+          f"block {ev_full:.0f}/{ev_cheap:.0f} of 32,000; valid "
+          f"{eo['valid'][:, :nrot].mean():.4f}; bound {ev_bound:.2f} ms "
+          f"({ev_bound_by}); host per call: scene build + upload "
+          f"{host_scene_s:.2f}s, classes {host_metrics_s:.3f}s", flush=True)
+
+    # shortened eval: kernel vs plain over 2,400 steps
+    skw = dict(steps=3 * SIM.eval_regrasp_3d, **ekw)
+    se_ms, sout = timed_cuda(lambda: rollout3d.rollout(
+        *arrs16, eposes, **skw), reps=1, warm=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sref = profile_batch_ref(*arrs16, eposes, **skw)
+    torch.cuda.synchronize()
+    se_plain_ms = 1e3 * (time.perf_counter() - t0)
+    so = {k: v[:, :nrot] for k, v in k2_view(sout, eposes).items()}
+    sr = {k: v[:, :nrot] for k, v in k2_view(sref, eposes).items()}
+    se_stats = parity(so, sr, "K2 eval 16x128x2400 snapshot, kernel vs plain")
+    fcorr = float(np.corrcoef(so["fth"].ravel(), sr["fth"].ravel())[0, 1])
+    agree = [float(np.mean(three_class(so[k], t) == three_class(sr[k], t)))
+             for k, t in zip(("dth", "dpx", "dpy"), NORM.threshold_3d)]
+    final_err = float(np.abs(so["fth"] - sr["fth"]).max())
+    print(f"  final pose after 2,400 steps: corr(final theta) {fcorr:.6f}, "
+          f"max |diff| {final_err:.3g}; 3-class agreement min "
+          f"{min(agree):.4f}; kernel {se_ms:.0f} ms, plain {se_plain_ms:.0f} "
+          f"ms", flush=True)
+    check(fcorr >= 0.99 and min(agree) >= 0.99, "eval final/profile classes")
+    se_bound, se_bound_by = bound_ms(
+        k2_flops(256, skw["steps"], sout[9].cpu(), sout[10].cpu(),
+                 sout[11].cpu()), k2_bytes(16, 256, 128))
+    out["verify"] = {"kernel_ms": ev_ms, "flops": ev_flops,
+                     "bound_ms": ev_bound, "bound_by": ev_bound_by,
+                     "full_steps_per_block": ev_full,
+                     "cheap_steps_per_block": ev_cheap,
+                     "host_scene_s": host_scene_s,
+                     "host_metrics_s": host_metrics_s}
+    out["short_eval"] = {"kernel_ms": se_ms, "plain_ms": se_plain_ms,
+                         "bound_ms": se_bound, "bound_by": se_bound_by,
+                         "parity": se_stats, "final_theta_corr": fcorr,
+                         "class_agreement_min": min(agree),
+                         "max_abs_err_final": final_err}
+    out["max_abs_err"] = max(v["max_abs_err"] for st in (dg_stats, se_stats)
+                             for v in st.values())
+
+    # ---- 7. the 3D design loop through cli.sample.main --------------------
+    torch.manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        unet_cfg = {"down_dims": [128, 256]}
+        cls_cfg = {"width": 256, "params_ch": 42}
+        gpath, dpath = (os.path.join(tmp, f) for f in ("unet.npz", "dyn.npz"))
+        convert.save_npz(gpath, ConditionalUnet1D(**unet_cfg).state_dict(),
+                         unet_cfg)
+        convert.save_npz(dpath, ProfileForward3D(**cls_cfg).state_dict(),
+                         cls_cfg)
+        save_dir = os.path.join(tmp, "guided3d")
+        for k in rollout3d.KERNEL_LAUNCHES:
+            rollout3d.KERNEL_LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        report = sample_cli.main([
+            "--fingers_3d", "--ctrlpts_dim", "42", "--grid_size", "45",
+            "--num_pos", "5", "--sub_bs", "512",
+            "--diffusion_checkpoint_path", gpath, "--checkpoint_path", dpath,
+            "--save_dir", save_dir, "--batch_size", "16",
+            "--num_inference_steps", "5",
+            "--object_dir", os.path.join(ROOT, "tests", "fixtures",
+                                         "scanned_objects"),
+            "--object_max_num_vertices", "512",
+            "--objectives", "convergence,shift_up,rotate_clockwise",
+            "--device", "cuda",
+        ])
+        torch.cuda.synchronize()
+        design_s = time.perf_counter() - t0
+        launches = dict(rollout3d.KERNEL_LAUNCHES)
+        n_samples = 0
+        for name in sorted(os.listdir(save_dir)):
+            if name.startswith("samples_") and name.endswith(".npy"):
+                smp = np.load(os.path.join(save_dir, name))
+                check(smp.shape == (16, 42, 1) and np.isfinite(smp).all(),
+                      f"{name}: finite (16, 42, 1) samples")
+                n_samples += 1
+        check(n_samples == 5, f"5 sample files, found {n_samples}")
+        shutil.copy(os.path.join(save_dir, "guided_report.json"),
+                    os.path.join(OUT_DIR, "guided_report_3d.json"))
+        # where one verification call of the loop spends its time: the
+        # guided shift_up samples once more, the whole call on the host
+        # clock, and its K2 launch with CUDA events
+        samp = np.load(os.path.join(save_dir,
+                                    "samples_shift_up_mug_small.npy"))[..., 0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim_eval_batch_3d(samp, [(verts, faces)], num_rot=nrot, device=dev)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    y = denormalize_y(samp, fingers_3d=True)
+    arrs_s = rollout3d.scene_arrays_3d(datagen.stack_scenes([
+        engine3d.make_scene(yi[:21], yi[21:], verts, faces, obj_props=props)
+        for yi in y]), device=dev)
+    call_k_ms, sout = timed_cuda(lambda: rollout3d.rollout(
+        *arrs_s, eposes, steps=SIM.eval_steps_3d, **ekw), reps=1, warm=False)
+    call_full = float(sout[9][:, ::128].mean())
+    check(launches["rollout3d"] > 0,
+          "kernel rollout3d was not launched on the 3D design path")
+    print(f"3D design loop: {design_s:.1f}s end to end (sweep "
+          f"{report['design_sweep']['seconds']:.2f}s for "
+          f"{report['design_sweep']['pairs']} pairs, verification "
+          f"{report['verification']['seconds']:.1f}s); kernel launches "
+          f"{launches}", flush=True)
+    print(f"  one verification call of the loop (shift_up samples, "
+          f"mug_small): {call_s:.2f}s on the host clock, K2 "
+          f"{call_k_ms:.0f} ms of it; full-solve steps per block "
+          f"{call_full:.0f} of 32,000", flush=True)
+    out.update(design_loop_s=design_s, launches=launches,
+               design_sweep_s=report["design_sweep"]["seconds"],
+               verification_s=report["verification"]["seconds"],
+               design_call={"seconds": call_s, "kernel_ms": call_k_ms,
+                            "full_steps_per_block": call_full})
+    return out
 
 
 def main() -> int:
@@ -138,7 +439,7 @@ def main() -> int:
     from dgdm_tpu_torch.eval.metrics import profile_metrics_2d
     from dgdm_tpu_torch.geom.contour import extract_contours, synthetic_icon
     from dgdm_tpu_torch.geom.fingers import sample_gripper_2d
-    from dgdm_tpu_torch.sim import datagen, engine2d, rollout2d
+    from dgdm_tpu_torch.sim import datagen, engine2d, rollout2d, rollout3d
     from dgdm_tpu_torch.sim.rollout2d_ref import profile_batch_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -155,7 +456,8 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}, power limit not readable"
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    libraries = {"rollout2d": rollout2d.LIBRARY}
+    libraries = {"rollout2d": rollout2d.LIBRARY,
+                 "rollout3d": rollout3d.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         builds = {k: pool.submit(lib.build) for k, lib in libraries.items()}
@@ -345,7 +647,9 @@ def main() -> int:
           f"{call_k_ms:.0f} ms of it; full-solve steps per block "
           f"{call_full:.0f} of 8,000", flush=True)
 
-    # ---- 5. summary -------------------------------------------------------
+    k2 = phases_3d(dev)
+
+    # ---- 8. summary -------------------------------------------------------
     summary = {
         "card": card, "build_s": build_s,
         "datagen": {"kernel_ms": dg_ms, "plain_ms": dg_plain_ms,
@@ -361,7 +665,7 @@ def main() -> int:
         "design_loop_s": design_s, "launches": launches,
         "design_call": {"seconds": call_s, "kernel_ms": call_k_ms,
                         "full_steps_per_block": call_full},
-        "seconds": time.perf_counter() - t_start,
+        "k2": k2, "seconds": time.perf_counter() - t_start,
     }
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
@@ -375,6 +679,25 @@ def main() -> int:
         "ms": ev_ms, "plain_ms": ev_plain_ms, "bound_ms": ev_bound,
         "bound_by": ev_bound_by, "library_ms": None,
         "shape": "16 pairs x 384 poses x 8000 steps (verification)",
+    }, {
+        "name": "rollout3d", "route": "cuda",
+        "source": "dgdm_tpu_torch/csrc/rollout3d.cu",
+        "replaces": "dgdm_tpu/sim/pallas3d.py:91",
+        "launches": k2["launches"]["rollout3d"],
+        "max_abs_err": k2["max_abs_err"],
+        # kernel, plain version and bound on the same work: the verification
+        # shape of the 3D loop with its depth cut to 2,400 steps
+        "ms": k2["short_eval"]["kernel_ms"],
+        "plain_ms": k2["short_eval"]["plain_ms"],
+        "bound_ms": k2["short_eval"]["bound_ms"],
+        "bound_by": k2["short_eval"]["bound_by"], "library_ms": None,
+        "shape": "16 pairs x 128 poses x 2400 steps (verification, depth "
+                 "cut from 32000)",
+        "verify_ms": k2["verify"]["kernel_ms"],
+        "verify_bound_ms": k2["verify"]["bound_ms"],
+        "datagen_ms": k2["datagen"]["kernel_ms"],
+        "datagen_plain_ms": k2["datagen"]["plain_ms"],
+        "datagen_bound_ms": k2["datagen"]["bound_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

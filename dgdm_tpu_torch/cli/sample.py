@@ -1,20 +1,26 @@
-"""Guided-sampling CLI, 2D path — port of ``dgdm_tpu/cli/sample.py``
-(counterpart of the reference ``generator/guided_sample_2d.sh``).
+"""Guided-sampling CLI — port of ``dgdm_tpu/cli/sample.py`` (counterpart
+of the reference ``generator/guided_sample_2d.sh`` / ``guided_sample_3d.sh``).
 
 Loads the diffusion UNet (EMA weights) and the dynamics classifier, runs
 unguided + guided DDIM for the chosen objectives over the test objects,
-verifies every sample with 8,000-step re-grasp rollouts on the device (the
-rollout kernel, ``sim/rollout2d.py``), and writes per-objective best-gripper
-tables to ``guided_report.json``.
+verifies every sample with re-grasp rollouts on the device (2D: 8,000 steps
+through ``sim/rollout2d.py``; ``--fingers_3d``: 32,000 steps through
+``sim/rollout3d.py``), and writes per-objective best-gripper tables to
+``guided_report.json``.
 
 Checkpoints are the ``.npz`` files of ``models/convert.py`` (a flax tree
-carried across, or a state_dict saved by the port). ``--fingers_3d`` and
-``--render_video`` wait for later slices of the port.
+carried across, or a state_dict saved by the port). ``--render_video``
+waits for a later slice of the port.
 
-Example:
+Examples:
     python -m dgdm_tpu_torch.cli.sample --diffusion_checkpoint_path unet.npz \\
         --checkpoint_path dyn2d.npz --save_dir runs/guided2d \\
         --batch_size 16 --device cuda
+    python -m dgdm_tpu_torch.cli.sample --fingers_3d --ctrlpts_dim 42 \\
+        --grid_size 45 --num_pos 5 --sub_bs 512 \\
+        --object_dir tests/fixtures/scanned_objects \\
+        --object_max_num_vertices 512 --diffusion_checkpoint_path unet3d.npz \\
+        --checkpoint_path dyn3d.npz --save_dir runs/guided3d --device cuda
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from dgdm_tpu_torch.core.flags import build_parser
 from dgdm_tpu_torch.design.guidance import GuidedSampler
 from dgdm_tpu_torch.eval.metrics import average_objectives, best_ids_all_metrics
 from dgdm_tpu_torch.eval.simeval import objectives_table, sim_eval_batch_2d
+from dgdm_tpu_torch.eval.simeval3d import sim_eval_batch_3d
 from dgdm_tpu_torch.geom.contour import extract_contours, load_icon, synthetic_icon
 from dgdm_tpu_torch.models import convert
 from dgdm_tpu_torch.train import generator
@@ -53,6 +60,35 @@ def load_test_objects(args):
     return ids, contours
 
 
+def load_test_objects_3d(args):
+    """Test-split scanned objects (reference: object_names_test.txt names
+    under object_dir, generator/train.py:100-109): names, (verts, faces)
+    meshes and normalized surface clouds of object_max_num_vertices points."""
+    from dgdm_tpu_torch.geom import mesh3d
+
+    names_file = os.path.join(args.object_dir, "object_names_test.txt")
+    with open(names_file) as f:
+        names = [ln.strip() for ln in f if ln.strip()]
+    if args.num_test_objects:
+        names = names[: args.num_test_objects]
+    meshes, clouds = [], []
+    for name in names:
+        verts, faces = mesh3d.load_obj(
+            os.path.join(args.object_dir, name, "model.obj"))
+        meshes.append((verts, faces))
+        pts = np.array(mesh3d.sample_surface(verts, faces,
+                                             args.object_max_num_vertices))
+        e = NORM.object_extent_3d_xy
+        pts[:, 0] = (pts[:, 0] + e) / (2 * e) * 2 - 1
+        pts[:, 1] = (pts[:, 1] + e) / (2 * e) * 2 - 1
+        pts[:, 2] = (
+            (pts[:, 2] - NORM.object_z_min_3d)
+            / (NORM.object_z_max_3d - NORM.object_z_min_3d) * 2 - 1
+        )
+        clouds.append(pts.astype(np.float32))
+    return names, meshes, clouds
+
+
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -60,9 +96,9 @@ def _sync(device: torch.device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.fingers_3d or args.render_video:
-        raise NotImplementedError(
-            "--fingers_3d and --render_video are not ported yet")
+    if args.render_video:
+        raise NotImplementedError("--render_video is not ported yet")
+    f3d = args.fingers_3d
     device = torch.device(args.device)
     # design and verification run in float32 (no TF32 products)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -71,15 +107,21 @@ def main(argv=None):
 
     unet = convert.load_model(args.diffusion_checkpoint_path, "unet",
                               input_dim=1).to(device)
-    classifier = convert.load_model(
-        args.checkpoint_path, "profile2d", params_ch=args.ctrlpts_dim,
-        object_ch=2 * args.object_max_num_vertices).to(device)
+    if f3d:
+        classifier = convert.load_model(
+            args.checkpoint_path, "profile3d",
+            params_ch=args.ctrlpts_dim).to(device)
+        ids, meshes, clouds = load_test_objects_3d(args)
+        obj_flats = np.stack(clouds)
+    else:
+        classifier = convert.load_model(
+            args.checkpoint_path, "profile2d", params_ch=args.ctrlpts_dim,
+            object_ch=2 * args.object_max_num_vertices).to(device)
+        ids, contours = load_test_objects(args)
+        obj_flats = np.stack([c.reshape(-1) / NORM.object_extent_2d
+                              for c in contours])
+    obj_flats = torch.as_tensor(obj_flats, dtype=torch.float32, device=device)
     b = args.batch_size
-
-    ids, contours = load_test_objects(args)
-    obj_flats = torch.as_tensor(
-        np.stack([c.reshape(-1) / NORM.object_extent_2d for c in contours]),
-        dtype=torch.float32, device=device)
 
     # --sub_bs = rows per pose-grid chunk (the reference's sub-batching)
     n_poses = args.grid_size * args.num_pos**2
@@ -91,7 +133,8 @@ def main(argv=None):
         pose_chunks=pose_chunks, device=device,
     )
 
-    # --eval_steps > 0 overrides the reference rollout length (8k steps)
+    # --eval_steps > 0 overrides the reference rollout length (8k 2D / 32k
+    # 3D)
     eval_kw = {}
     if args.eval_steps:
         eval_kw["total_steps"] = args.eval_steps
@@ -101,9 +144,15 @@ def main(argv=None):
 
     def sim_eval(samples, oi):
         t0 = time.perf_counter()
-        out = sim_eval_batch_2d(
-            samples.detach().cpu().numpy()[..., 0], [contours[oi]],
-            num_rot=args.grid_size, device=device, **eval_kw)
+        pts_y = samples.detach().cpu().numpy()[..., 0]
+        if f3d:
+            out = sim_eval_batch_3d(pts_y, [meshes[oi]],
+                                    num_rot=args.grid_size, device=device,
+                                    **eval_kw)
+        else:
+            out = sim_eval_batch_2d(pts_y, [contours[oi]],
+                                    num_rot=args.grid_size, device=device,
+                                    **eval_kw)
         verify_seconds[0] += time.perf_counter() - t0
         return out
 
@@ -131,7 +180,7 @@ def main(argv=None):
     unguided_metrics = [sim_eval(unguided, oi) for oi in range(len(ids))]
 
     report = {}
-    thr0 = NORM.threshold_std(False)[0]
+    thr0 = NORM.threshold_std(f3d)[0]
     objectives = ([o for o in args.objectives.split(",") if o]
                   if args.objectives else list(GUIDED_OBJECTIVES))
     # fused design sweep: every (objective, object) pair except convergence
@@ -139,7 +188,7 @@ def main(argv=None):
     sweep_names = [o for o in objectives if o != "convergence"]
     if sweep_names:
         obj_feats, s_weights, s_rsq, s_scales, s_labels = sampler.sweep_inputs(
-            sweep_names, obj_flats, False)
+            sweep_names, obj_flats, f3d)
         _sync(device)
         t0 = time.perf_counter()
         sweep_out = sampler.sample_sweep(noise, obj_feats, s_weights, s_rsq,
@@ -159,7 +208,7 @@ def main(argv=None):
                     unguided, obj_flats[oi], thr0)
                 samples = sampler.sample(
                     noise, obj_flats[oi], objective,
-                    GUIDANCE.scale(False, objective), centers=centers)
+                    GUIDANCE.scale(f3d, objective), centers=centers)
             metrics = sim_eval(samples, oi)
             per_object[str(oid)] = {
                 **table_entry(metrics, objective),
@@ -173,7 +222,7 @@ def main(argv=None):
         # objects (convergence is per-object-centered, excluded there too)
         if objective != "convergence":
             msamples = sampler.sample_multi_object(
-                noise, obj_flats, objective, GUIDANCE.scale(False, objective))
+                noise, obj_flats, objective, GUIDANCE.scale(f3d, objective))
             mo_objs = [objectives_table(sim_eval(msamples, oi), objective)
                        for oi in range(len(ids))]
             entry["multi_object"] = {

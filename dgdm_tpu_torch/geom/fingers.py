@@ -1,9 +1,11 @@
-"""Procedural 2D gripper sampling — 2D parts of ``dgdm_tpu/geom/fingers.py``.
+"""Procedural gripper sampling — port of ``dgdm_tpu/geom/fingers.py``
+(its on-device ``fast_sample_y`` waits for the training slice).
 
 The reference regenerates its diffusion training set from
 ``np.random.RandomState(idx)`` seeds (``generator/train.py:42-58``) and uses
-the same seeds during datagen (``sim/sim_2d.py:74-77``): the seed IS the
-dataset, so ``sample_gripper_2d`` stays bit-exact numpy MT19937.
+the same seeds during datagen (``sim/sim_2d.py:74-77``,
+``sim/sim_3d.py:73-75``): the seed IS the dataset, so ``sample_gripper_2d``
+and ``sample_gripper_3d`` stay bit-exact numpy MT19937.
 """
 
 from __future__ import annotations
@@ -29,12 +31,41 @@ def sample_gripper_2d(idx: int) -> Tuple[np.ndarray, np.ndarray]:
     return yl, yr
 
 
+def sample_gripper_3d(idx: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(yl, yr) each (21,) — parity with sim/sim_3d.py:73-75."""
+    g = GRIPPER_3D
+    rs = np.random.RandomState(idx)
+    yl = rs.uniform(g.ctrl_y_min, g.ctrl_y_max, size=(g.num_ctrl,))
+    yr = rs.uniform(g.ctrl_y_min, g.ctrl_y_max, size=(g.num_ctrl,))
+    return yl, yr
+
+
+def sample_grippers_batch(
+    start: int, count: int, fingers_3d: bool = False
+) -> np.ndarray:
+    """(count, 2, n_ctrl) stacked [yl, yr] for idx in [start, start+count)."""
+    fn = sample_gripper_3d if fingers_3d else sample_gripper_2d
+    return np.stack([np.stack(fn(i)) for i in range(start, start + count)])
+
+
 def ctrlpts_2d(yl: np.ndarray, yr: np.ndarray) -> np.ndarray:
     """(14, 2) control point array matching assets/finger_sampler.py:38-50."""
     x = ctrl_x_2d()
     return np.concatenate(
         [np.stack([x, yl], -1), np.stack([x, yr], -1)], axis=0
     )
+
+
+def ctrlpts_3d(yl: np.ndarray, yr: np.ndarray) -> np.ndarray:
+    """(42, 3) matching assets/finger_3d.py:82-88 (x-major grid order)."""
+    g = GRIPPER_3D
+    x = np.linspace(g.ctrl_x_min, g.ctrl_x_max, g.nu)
+    z = np.linspace(g.ctrl_z_min, g.ctrl_z_max, g.nv)
+    xn, zn = np.meshgrid(x, z)
+    xf, zf = xn.T.reshape(-1), zn.T.reshape(-1)
+    left = np.stack([xf, yl, zf], axis=-1)
+    right = np.stack([xf, yr, zf], axis=-1)
+    return np.concatenate([left, right], axis=0)
 
 
 # -- normalization (dynamics/dataloader.py:46-49, generator/dataloader.py:17-19)

@@ -3,8 +3,9 @@
 
 A flax variable tree arrives as nested dicts of numpy arrays (what
 ``flax.serialization.to_state_dict`` / ``jax.device_get`` give; this module
-imports no JAX). ``unet_state_dict`` / ``profile2d_state_dict`` map it to
-the port's ``state_dict`` names with the layout changes:
+imports no JAX). ``unet_state_dict`` / ``profile2d_state_dict`` /
+``profile3d_state_dict`` map it to the port's ``state_dict`` names with the
+layout changes:
 
 - Dense kernel (in, out) -> Linear weight (out, in);
 - Conv kernel (k, in, out) -> Conv1d weight (out, in, k);
@@ -14,9 +15,9 @@ the port's ``state_dict`` names with the layout changes:
 - GroupNorm/BatchNorm scale -> weight; BatchNorm batch_stats mean/var ->
   running_mean/running_var.
 
-``flax_unet`` / ``flax_profile2d`` invert the maps. ``save_npz`` writes a
-state_dict plus the constructor arguments; ``load_model`` rebuilds the
-module from such a file.
+``flax_unet`` / ``flax_profile2d`` / ``flax_profile3d`` invert the maps.
+``save_npz`` writes a state_dict plus the constructor arguments;
+``load_model`` rebuilds the module from such a file.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from dgdm_tpu_torch.models.profile2d import ProfileForward2D
+from dgdm_tpu_torch.models.profile3d import ProfileForward3D
 from dgdm_tpu_torch.models.unet1d import ConditionalUnet1D
 
 _CONFIG_KEY = "__config__"
@@ -94,6 +96,15 @@ _PROFILE_RULES = (
     ("trunk_{0}", "trunk_layers.{0}", "dense"),
     ("bn_{0}", "trunk_bns.{0}", "norm"),
 )
+_PROFILE3D_RULES = (
+    ("gripper_encoder/Dense_{0}", "gripper_encoder.fc{0}", "dense"),
+    ("object_encoder/sa{0}/mlp_{1}", "object_encoder.sa{0}.mlps.{1}",
+     "dense"),
+    ("object_encoder/sa{0}/bn_{1}", "object_encoder.sa{0}.bns.{1}", "norm"),
+    ("head", "head", "dense"),
+    ("trunk_{0}", "trunk_layers.{0}", "dense"),
+    ("bn_{0}", "trunk_bns.{0}", "norm"),
+)
 # (flax collection, flax leaf) <-> torch leaf
 _LEAVES = ((("params", "kernel"), "weight"), (("params", "scale"), "weight"),
            (("params", "bias"), "bias"),
@@ -152,15 +163,26 @@ def unet_state_dict(params) -> Dict[str, np.ndarray]:
     return _to_torch(flatten(params), "params", _UNET_RULES)
 
 
-def profile2d_state_dict(variables) -> Dict[str, np.ndarray]:
-    """flax ProfileForward2D ``{"params", "batch_stats"}`` -> state_dict."""
-    sd = _to_torch(flatten(variables["params"]), "params", _PROFILE_RULES)
+def _variables_to_torch(variables, rules) -> Dict[str, np.ndarray]:
+    sd = _to_torch(flatten(variables["params"]), "params", rules)
     sd.update(_to_torch(flatten(variables["batch_stats"]), "batch_stats",
-                        _PROFILE_RULES))
+                        rules))
     for k in [k for k in sd if k.endswith(".running_mean")]:
         sd[k.replace("running_mean", "num_batches_tracked")] = np.zeros(
             (), np.int64)
     return sd
+
+
+def profile2d_state_dict(variables) -> Dict[str, np.ndarray]:
+    """flax ProfileForward2D ``{"params", "batch_stats"}`` -> state_dict."""
+    return _variables_to_torch(variables, _PROFILE_RULES)
+
+
+def profile3d_state_dict(variables) -> Dict[str, np.ndarray]:
+    """flax ProfileForward3D ``{"params", "batch_stats"}`` -> state_dict
+    (the PointNet++ Dense layers act on (B, M, k, C) in flax and on the
+    channel axis of the same layout here: the same kernel transform)."""
+    return _variables_to_torch(variables, _PROFILE3D_RULES)
 
 
 def flax_unet(sd: Dict[str, np.ndarray]) -> dict:
@@ -171,6 +193,11 @@ def flax_unet(sd: Dict[str, np.ndarray]) -> dict:
 def flax_profile2d(sd: Dict[str, np.ndarray]) -> dict:
     """Port ProfileForward2D state_dict -> flax ``{"params", "batch_stats"}``."""
     return _to_flax(sd, _PROFILE_RULES)
+
+
+def flax_profile3d(sd: Dict[str, np.ndarray]) -> dict:
+    """Port ProfileForward3D state_dict -> flax ``{"params", "batch_stats"}``."""
+    return _to_flax(sd, _PROFILE3D_RULES)
 
 
 def save_npz(path: str, state_dict, config: dict) -> None:
@@ -189,11 +216,12 @@ def load_npz(path: str) -> Tuple[Dict[str, torch.Tensor], dict]:
     return sd, config
 
 
-MODELS = {"unet": ConditionalUnet1D, "profile2d": ProfileForward2D}
+MODELS = {"unet": ConditionalUnet1D, "profile2d": ProfileForward2D,
+          "profile3d": ProfileForward3D}
 
 
 def load_model(path: str, kind: str, **defaults) -> torch.nn.Module:
-    """Rebuild a ``kind`` module ("unet" or "profile2d") from ``save_npz``
+    """Rebuild a ``kind`` module (a key of ``MODELS``) from ``save_npz``
     output; constructor arguments stored in the file override ``defaults``."""
     sd, config = load_npz(path)
     model = MODELS[kind](**{**defaults, **config})

@@ -1,0 +1,77 @@
+"""Build-on-first-use loader of the port's hand-written CUDA kernels (no
+JAX counterpart: the JAX package's kernels are Pallas, compiled by JAX).
+
+Each source under ``dgdm_tpu_torch/csrc/`` has a plain C interface. On first
+use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+``dgdm_tpu_torch/_build/`` (named by a hash of the source and the flags, so a
+changed source rebuilds) and loaded with ctypes. Nothing here runs at import:
+the CPU tests import every module on a host without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Callable, Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_BUILD = os.path.join(_PKG, "_build")
+NVCC_FLAGS = (
+    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+            "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the port's kernels build with the "
+                       "CUDA toolkit (set CUDA_HOME)")
+
+
+class CudaLibrary:
+    """One kernel source: ``build()`` compiles it unless this source's library
+    exists; ``get()`` loads it and lets ``bind`` set the C signatures."""
+
+    def __init__(self, source: str, bind: Callable[[ctypes.CDLL], None]):
+        self.name = os.path.splitext(source)[0]
+        self.src = os.path.join(_PKG, "csrc", source)
+        self._bind = bind
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+        self.build_log = ""
+
+    def path(self) -> str:
+        with open(self.src, "rb") as f:
+            digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+        return os.path.join(_BUILD,
+                            f"lib{self.name}_{digest.hexdigest()[:12]}.so")
+
+    def build(self) -> str:
+        so = self.path()
+        if os.path.exists(so):
+            return so
+        os.makedirs(_BUILD, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, self.src],
+                              capture_output=True, text=True)
+        self.build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {self.src}:\n{self.build_log}")
+        os.replace(tmp, so)
+        return so
+
+    def get(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(self.build())
+                self._bind(lib)
+                self._lib = lib
+            return self._lib

@@ -21,8 +21,10 @@ from dgdm_tpu_torch.sim.types import Scene2D
 
 
 def stack_scenes(scenes: Sequence[Scene2D]) -> Scene2D:
-    return Scene2D(**{f.name: torch.stack([getattr(s, f.name) for s in scenes])
-                      for f in dataclasses.fields(Scene2D)})
+    """Stack Scene2D or Scene3D pairs along a new leading dimension."""
+    cls = type(scenes[0])
+    return cls(**{f.name: torch.stack([getattr(s, f.name) for s in scenes])
+                  for f in dataclasses.fields(cls)})
 
 
 def pad_poses(poses: np.ndarray, lane: int = rollout2d.LANE) -> np.ndarray:

@@ -31,9 +31,11 @@ from dgdm_tpu_torch.sim.types import Scene2D
 class Calib:
     """Effective-parameter knobs fitted against the MuJoCo oracle (see
     ``dgdm_tpu/sim/engine2d.py:Calib`` for the derivation of each): the
-    eight that the 2D Newton solve reads. The JAX package's 3D-only probe
-    knobs (all no-ops at their defaults) and its jacobi-solver table
-    ``FITTED_2D`` wait for the slices that port those paths."""
+    eight that the 2D Newton solve reads, and ``restitution``, which the 3D
+    rollout kernel reads (an exact no-op at its default 0.0). The JAX
+    package's other 3D probe knobs (all no-ops at their defaults) and its
+    jacobi-solver table ``FITTED_2D`` wait for the slices that port those
+    paths."""
 
     mu_plane: float            # effective object-plane sliding friction
     mu_finger: float           # finger-object sliding friction
@@ -43,6 +45,7 @@ class Calib:
     unload: float              # grip-induced plane-unloading gain
     rough: float               # crack-capture tangential stiction gain (1/s)
     c_r: float                 # constraint compliance scale (Newton solver)
+    restitution: float = 0.0   # finger-row velocity restitution (3D Newton)
 
 
 CALIB_FIELDS = tuple(f.name for f in dataclasses.fields(Calib))

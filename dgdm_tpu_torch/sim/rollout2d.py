@@ -5,7 +5,8 @@ shared pose batch and runs every (pair, pose) rollout for all steps:
 
 - on CUDA tensors it launches the hand-written kernel
   ``dgdm_tpu_torch/csrc/rollout2d.cu`` (built with ``nvcc`` for ``sm_90a`` on
-  first use into ``dgdm_tpu_torch/_build/`` and bound with ctypes);
+  first use into ``dgdm_tpu_torch/_build/`` and bound with ctypes, by
+  ``sim/cuda_lib.py``);
 - on CPU tensors it runs the plain PyTorch version
   (``sim/rollout2d_ref.py``).
 
@@ -16,11 +17,6 @@ raises. ``KERNEL_LAUNCHES["rollout2d"]`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 import warnings
 from typing import Optional, Tuple
 
@@ -29,19 +25,12 @@ import torch
 
 from dgdm_tpu_torch.core.config import GRIPPER_2D, SIM
 from dgdm_tpu_torch.sim import engine2d
+from dgdm_tpu_torch.sim.cuda_lib import CudaLibrary
 from dgdm_tpu_torch.sim.rollout2d_ref import (
     EPS_SETTLED,
     LANE,
     N_SCALARS,
     profile_batch_ref,
-)
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "rollout2d.cu")
-_BUILD = os.path.join(_PKG, "_build")
-NVCC_FLAGS = (
-    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
 # kernel launches per wrapper, for showing that a run went through them
@@ -59,59 +48,13 @@ class _Params(ctypes.Structure):
          "b_plane", "depth_el_cap", "impedance", "eps_settled", "marg")]
 
 
-class _Library:
-    """Build-on-first-use loader of the rollout kernel's shared library."""
-
-    def __init__(self):
-        self._lib: Optional[ctypes.CDLL] = None
-        self._lock = threading.Lock()
-        self.build_log = ""
-
-    @staticmethod
-    def nvcc() -> str:
-        home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-        for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
-                "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]:
-            if cand and os.path.exists(cand):
-                return cand
-        raise RuntimeError("nvcc not found: the rollout kernel builds with the "
-                           "CUDA toolkit (set CUDA_HOME)")
-
-    def path(self) -> str:
-        with open(_SRC, "rb") as f:
-            digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-        return os.path.join(_BUILD, f"librollout2d_{digest.hexdigest()[:12]}.so")
-
-    def build(self) -> str:
-        """Compile csrc/rollout2d.cu unless this source's library exists."""
-        so = self.path()
-        if os.path.exists(so):
-            return so
-        os.makedirs(_BUILD, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [self.nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-            capture_output=True, text=True,
-        )
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{self.build_log}")
-        os.replace(tmp, so)
-        return so
-
-    def get(self) -> ctypes.CDLL:
-        with self._lock:
-            if self._lib is None:
-                lib = ctypes.CDLL(self.build())
-                p = ctypes.c_void_p
-                lib.rollout2d_launch.argtypes = [p] * 6 + [ctypes.c_int] * 4 + [
-                    _Params, p]
-                lib.rollout2d_launch.restype = ctypes.c_int
-                self._lib = lib
-            return self._lib
+def _bind(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    lib.rollout2d_launch.argtypes = [p] * 6 + [ctypes.c_int] * 4 + [_Params, p]
+    lib.rollout2d_launch.restype = ctypes.c_int
 
 
-LIBRARY = _Library()
+LIBRARY = CudaLibrary("rollout2d.cu", _bind)
 
 
 def _params(steps, regrasp_every, snapshot_step) -> _Params:

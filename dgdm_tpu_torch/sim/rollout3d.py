@@ -1,0 +1,245 @@
+"""3D squeeze rollouts on the card — port of ``dgdm_tpu/sim/pallas3d.py``.
+
+``profile_batch`` takes the dense per-pair arrays of ``scene_arrays_3d`` and
+a shared pose batch and runs every (pair, pose) rollout for all steps:
+
+- on CUDA tensors it launches the hand-written kernel
+  ``dgdm_tpu_torch/csrc/rollout3d.cu`` (built with ``nvcc`` for ``sm_90a`` on
+  first use into ``dgdm_tpu_torch/_build/`` and bound with ctypes, by
+  ``sim/cuda_lib.py``);
+- on CPU tensors it runs the plain PyTorch version
+  (``sim/rollout3d_ref.py``).
+
+There is no fallback between the two: a CUDA tensor launches the kernel or
+raises. ``KERNEL_LAUNCHES["rollout3d"]`` counts kernel launches. The contact
+solver is the coupled Newton solve that the JAX wrapper resolves from
+``engine3d.SOLVER3``; the Pallas kernel's ``solver="jacobi"`` branch and its
+adaptive ``newton_tol`` loop are not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from dgdm_tpu_torch.core.config import GRIPPER_3D, SIM
+from dgdm_tpu_torch.sim import engine3d
+from dgdm_tpu_torch.sim.cuda_lib import CudaLibrary
+from dgdm_tpu_torch.sim.engine2d import Calib
+from dgdm_tpu_torch.sim.rollout3d_ref import (
+    LANE,
+    N_SCALARS,
+    constants,
+    profile_batch_ref,
+    readout,
+)
+from dgdm_tpu_torch.sim.surface_fit import (
+    DEG_X,
+    DEG_Z,
+    N_SEG,
+    NZ_SEG,
+    TOT_SEG,
+    fit_surface_batch,
+)
+
+# kernel launches per wrapper, for showing that a run went through them
+KERNEL_LAUNCHES = {"rollout3d": 0}
+
+# float fields of Rollout3DParams in csrc/rollout3d.cu, in order; each value
+# comes from rollout3d_ref.constants()
+_FLOAT_PARAMS = (
+    "dt", "d_imp", "ctrl_l", "ctrl_r", "kp", "damping", "x0f", "x1f", "z0f",
+    "z1f", "hseg", "hzseg", "inv_hseg", "inv_hzseg", "surf_l0", "surf_r0",
+    "plane_z", "tgt_p_v", "tgt_p_d", "g_dt", "gravity", "d_imp_dt", "v_rest",
+    "depth_el_cap", "eps_settled", "marg", "tip_atol")
+
+
+class _Params(ctypes.Structure):
+    """Mirror of ``Rollout3DParams`` in csrc/rollout3d.cu."""
+
+    _fields_ = [(k, ctypes.c_int) for k in
+                ("steps", "regrasp_every", "snapshot_step", "newton_iters")] + [
+        (k, ctypes.c_float) for k in _FLOAT_PARAMS]
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p = ctypes.c_void_p
+    lib.rollout3d_launch.argtypes = [p] * 5 + [ctypes.c_int] * 3 + [_Params, p]
+    lib.rollout3d_launch.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("rollout3d.cu", _bind)
+
+
+def _params(steps, regrasp_every, snapshot_step) -> _Params:
+    k = constants()
+    return _Params(steps=steps, regrasp_every=regrasp_every,
+                   snapshot_step=snapshot_step,
+                   newton_iters=engine3d.NEWTON_ITERS3,
+                   **{name: k[name] for name in _FLOAT_PARAMS})
+
+
+def _check_inputs(coefs, points, scalars, poses):
+    b = coefs.shape[0]
+    if tuple(coefs.shape) != (b, 2, TOT_SEG, DEG_X + 1, DEG_Z + 1):
+        raise ValueError("coefs must be (B, 2, 24, 4, 3), got "
+                         f"{tuple(coefs.shape)}")
+    if points.ndim != 3 or points.shape[0] != b or points.shape[2] != 4:
+        raise ValueError(f"points must be (B, P, 4), got {tuple(points.shape)}")
+    if tuple(scalars.shape) != (b, 1, N_SCALARS):
+        raise ValueError(f"scalars must be (B, 1, 32), got "
+                         f"{tuple(scalars.shape)}")
+    if poses.ndim != 2 or poses.shape[1] != 3 or poses.shape[0] % LANE:
+        raise ValueError(f"poses must be (N, 3) with N % {LANE} == 0, "
+                         f"got {tuple(poses.shape)}")
+    devs = {t.device for t in (coefs, points, scalars, poses)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs lie on several devices: {devs}")
+    for t in (coefs, points, scalars, poses):
+        if t.dtype != torch.float32:
+            raise TypeError(f"rollout inputs must be float32, got {t.dtype}")
+
+
+def rollout_cuda(coefs, points, scalars, poses, steps, regrasp_every,
+                 snapshot_step):
+    """Launch csrc/rollout3d.cu on the current stream -> (12, B, N) float32."""
+    lib = LIBRARY.get()
+    ins = [t.contiguous() for t in (coefs, points, scalars, poses)]
+    b, p, n = points.shape[0], points.shape[1], poses.shape[0]
+    out = torch.empty((12, b, n), dtype=torch.float32, device=poses.device)
+    stream = torch.cuda.current_stream(poses.device).cuda_stream
+    err = lib.rollout3d_launch(
+        *[t.data_ptr() for t in ins], out.data_ptr(), b, p, n,
+        _params(steps, regrasp_every, snapshot_step), stream)
+    if err != 0:
+        raise RuntimeError(f"rollout3d kernel launch failed: CUDA error {err}")
+    KERNEL_LAUNCHES["rollout3d"] += 1
+    return out
+
+
+def rollout(coefs, points, scalars, poses, steps: int = SIM.steps_3d,
+            regrasp_every: int = 0,
+            snapshot_step: int = 0) -> Tuple[torch.Tensor, ...]:
+    """The 12 raw (B, N) outputs named by ``rollout3d_ref.OUT_NAMES``."""
+    _check_inputs(coefs, points, scalars, poses)
+    if poses.device.type == "cuda":
+        return tuple(rollout_cuda(coefs, points, scalars, poses, steps,
+                                  regrasp_every, snapshot_step))
+    if poses.device.type == "cpu":
+        return profile_batch_ref(coefs, points, scalars, poses, steps=steps,
+                                 regrasp_every=regrasp_every,
+                                 snapshot_step=snapshot_step)
+    raise ValueError(f"no rollout path for device {poses.device}")
+
+
+def profile_batch(coefs, points, scalars, poses, steps: int = SIM.steps_3d,
+                  regrasp_every: int = 0, snapshot_step: int = 0,
+                  return_step_mix: bool = False):
+    """Fused rollouts: (B pairs) x (N poses) -> (dtheta (B, N), snapshot
+    dpos (B, N, 2), final theta (B, N), valid (B, N) bool, final dpos
+    (B, N, 2)); with ``return_step_mix`` also the per-block (full, cheap,
+    Newton-iteration) counts, as ``profile_batch_pallas3d`` returns them.
+
+    ``snapshot_step`` > 0 records dtheta/dpos at that step (the
+    first-squeeze profile of the eval schedule) while the rollout continues
+    to ``steps``; 0 snapshots at the end (datagen)."""
+    out = rollout(coefs, points, scalars, poses, steps=steps,
+                  regrasp_every=regrasp_every, snapshot_step=snapshot_step)
+    res = readout(*out[:9], poses)
+    return res + (tuple(out[9:]),) if return_step_mix else res
+
+
+_FIT_CACHE: "dict[bytes, np.ndarray]" = {}
+_FIT_CACHE_MAX = 2048
+
+
+def scene_arrays_3d(scenes, calib: Optional[Calib] = None,
+                    device="cuda") -> Tuple[torch.Tensor, ...]:
+    """Stacked Scene3D (leading dim B) -> the dense float32 inputs of
+    ``profile_batch`` on ``device``: coefs (B, 2, 24, 4, 3), points
+    (B, P, 4), scalars (B, 1, 32) (slot layout:
+    dgdm_tpu/sim/pallas3d.py:scene_arrays_3d). The per-jaw surface fits are
+    served from a bounded LRU keyed on the control points, the side and the
+    contact-surface mode."""
+    yls = scenes.yl.numpy()                          # (B, 7, 3)
+    yrs = scenes.yr.numpy()
+    b = yls.shape[0]
+    both = np.concatenate([yls, yrs], 0)             # (2B, 7, 3)
+    # first half = left jaws (inner face +y), second half = right (-y)
+    sides = ["upper"] * b + ["lower"] * b
+    mode = engine3d.CONTACT_SURFACE_3D.encode()
+    keys = [both[i].tobytes() + sides[i].encode() + mode
+            for i in range(2 * b)]
+    miss = [i for i, k in enumerate(keys) if k not in _FIT_CACHE]
+    fresh: "dict[bytes, np.ndarray]" = {}
+    if miss:
+        new = fit_surface_batch(both[miss], sides=[sides[i] for i in miss])
+        for j, i in enumerate(miss):
+            fresh[keys[i]] = new[j]
+    # materialise the batch before evicting; pop+reinsert hits (true LRU)
+    rows = []
+    for k in keys:
+        v = fresh.get(k)
+        if v is None:
+            v = _FIT_CACHE.pop(k)
+        _FIT_CACHE[k] = v
+        rows.append(v)
+    while len(_FIT_CACHE) > _FIT_CACHE_MAX:
+        _FIT_CACHE.pop(next(iter(_FIT_CACHE)))
+    fitted = np.stack(rows)                          # (2B, TOT_SEG, 4, 3)
+    coefs = np.stack([fitted[:b], fitted[b:]], axis=1).astype(np.float32)
+    pts = scenes.points.numpy()
+    points = np.concatenate(
+        [pts, np.zeros((b, pts.shape[1], 1), np.float32)], axis=-1)
+
+    if calib is None:
+        calib = engine3d.default_calib3()
+    scal = np.zeros((b, 1, N_SCALARS), np.float32)
+    fmass = scenes.finger_mass.numpy()
+    inv_i = scenes.inv_inertia.numpy()               # (B, 3, 3)
+    ib = scenes.inertia.numpy()
+    scal[:, 0, 0] = scenes.mass.numpy()
+    scal[:, 0, 1] = fmass[..., 0]
+    scal[:, 0, 2:5] = scenes.com.numpy()
+    scal[:, 0, 5] = inv_i[:, 0, 0]
+    scal[:, 0, 6] = inv_i[:, 1, 1]
+    scal[:, 0, 7] = inv_i[:, 2, 2]
+    scal[:, 0, 8] = inv_i[:, 0, 1]
+    scal[:, 0, 9] = inv_i[:, 0, 2]
+    scal[:, 0, 10] = inv_i[:, 1, 2]
+    scal[:, 0, 11] = fmass[..., 1]
+    scal[:, 0, 12] = float(calib.mu_plane)
+    scal[:, 0, 13] = float(calib.mu_finger)
+    scal[:, 0, 14] = float(calib.k_contact)
+    scal[:, 0, 15] = float(calib.b_contact)
+    scal[:, 0, 16] = float(calib.unload)
+    scal[:, 0, 17] = float(calib.rough)
+    scal[:, 0, 18] = ib[:, 0, 0]
+    scal[:, 0, 19] = ib[:, 1, 1]
+    scal[:, 0, 20] = ib[:, 2, 2]
+    scal[:, 0, 21] = ib[:, 0, 1]
+    scal[:, 0, 22] = ib[:, 0, 2]
+    scal[:, 0, 23] = ib[:, 1, 2]
+    scal[:, 0, 24] = float(calib.c_r)
+    scal[:, 0, 27] = float(calib.restitution)
+    # broad-phase surface extrema for the kernel's no-contact fast path
+    # (dense-grid evaluation of the fitted per-cell polynomials, padded by
+    # 1e-3 to stay conservative)
+    g = GRIPPER_3D
+    h3 = (g.ctrl_x_max - g.ctrl_x_min) / N_SEG
+    t3 = np.linspace(0.0, h3, 24)
+    s3 = np.linspace(0.0, (g.ctrl_z_max - g.ctrl_z_min) / NZ_SEG, 16)
+    basis = np.stack(
+        [t3[:, None] ** a * s3[None, :] ** b_
+         for a in range(DEG_X + 1) for b_ in range(DEG_Z + 1)], -1
+    )  # (T, S, C)
+    cflat = coefs.reshape(b, 2, TOT_SEG, -1)         # (B, 2, TOT_SEG, C)
+    vals3 = np.einsum("bfnc,tsc->bfnts", cflat, basis)
+    scal[:, 0, 25] = vals3[:, 0].max(axis=(1, 2, 3)) + 1e-3   # left max
+    scal[:, 0, 26] = vals3[:, 1].min(axis=(1, 2, 3)) - 1e-3   # right min
+    return tuple(torch.as_tensor(a).to(device)
+                 for a in (coefs, points, scal))
+

@@ -1,9 +1,13 @@
-"""Scene containers — port of ``dgdm_tpu/sim/types.py`` (2D part).
+"""Scene containers — port of ``dgdm_tpu/sim/types.py`` (``Scene2D``,
+``Scene3D``).
 
-One ``Scene2D`` holds everything static about an object x gripper pair as
-dense tensors; a batch of pairs is the same dataclass with a leading
-dimension (``datagen.stack_scenes``). A plain dataclass of tensors takes the
-place of the JAX package's ``flax.struct`` pytree.
+One scene holds everything static about an object x gripper pair as dense
+tensors; a batch of pairs is the same dataclass with a leading dimension
+(``datagen.stack_scenes``). A plain dataclass of tensors takes the place of
+the JAX package's ``flax.struct`` pytree. ``Scene3D`` holds the fields that
+the 3D rollout kernel's inputs read; the JAX scene's baked height grid
+(``hgrid``, read only by the pure-JAX ``engine3d.step*``) and its unused
+``bottom_pts`` wait for the port of that engine.
 """
 
 from __future__ import annotations
@@ -28,3 +32,18 @@ class Scene2D:
     finger_mass: torch.Tensor   # (2,) per-jaw mass (left, right)
     anchor: torch.Tensor        # (P,) or (1,) per-vertex crack-fan anchor
                                 # weights; (1,) of 1.0 = uniform
+
+
+@dataclasses.dataclass
+class Scene3D:
+    """Static description of one object x 3D-gripper pair."""
+
+    yl: torch.Tensor            # (7, 3) left finger surface ctrl y values
+    yr: torch.Tensor            # (7, 3) right finger
+    points: torch.Tensor        # (P, 3) object surface samples, body frame
+    com: torch.Tensor           # (3,) centre of mass, body frame
+    mass: torch.Tensor          # () object mass (incl. MuJoCo double-count)
+    inertia: torch.Tensor       # (3, 3) inertia about the COM
+    inv_inertia: torch.Tensor   # (3, 3)
+    bottom_w: torch.Tensor      # (P,) footprint-corner plane support weights
+    finger_mass: torch.Tensor   # (2,) per-jaw mass (left, right)
