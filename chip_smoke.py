@@ -6,7 +6,9 @@ Phases, each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit); build every hand-written
    kernel from the sources in this checkout (one ``nvcc`` per source, all
-   started together) and report the build time;
+   started together, compiled anew even where an earlier build is at hand),
+   report the build time and what ``ptxas -v`` says of each kernel
+   (registers; spills must be 0 bytes);
 2. kernel K1 (rollout2d), datagen schedule at full size: 8 procedural
    grippers x 1 synthetic icon x the 9,000-pose grid (padded to 9,088) x
    200 steps, held against its plain PyTorch version on the card and against
@@ -46,7 +48,16 @@ Phases, each printing its own lines:
    verification at the full 32,000 steps; K2's launch count is reset just
    before and read just after. One verification call of the loop (its
    shift_up samples) then runs once more, timed whole and K2 alone;
-8. times and the summary.
+8. the cost of a settled-travel step (two block votes and one cluster
+   barrier, almost nothing else): each kernel on a scene whose broad-phase
+   bounds put the fingers out of reach, at two depths, the difference over
+   the extra steps;
+9. times and the summary.
+
+Each kernel has one thread layout (K1 16 threads a rollout, K2 32; a
+128-pose group is a cluster of 8 blocks) and holds each thread's per-point
+contact geometry in shared memory; the layout of the launch is printed per
+shape.
 
 It then prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero, without that line, if
@@ -54,6 +65,9 @@ CUDA is missing, a kernel does not build, launch or agree, or a phase fails.
 Bars (as in tests/test_torch_rollout2d.py and test_torch_rollout3d.py):
 >= 99% of lanes within 1e-3 and corr >= 0.999 for dtheta and dpos; step
 counters equal per 128-pose block; for K2 also the tip-over validity equal.
+Kernel against plain version, beyond those bars: every output plane bitwise
+equal at the datagen shapes, at K1's verify shape (snapshot planes and
+counters; the final pose by corr and classes) and at K2's 2,400-step cut.
 """
 
 from __future__ import annotations
@@ -130,6 +144,76 @@ def timed_cuda(fn, reps: int, warm: bool = True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def ptxas_report(name: str, lib) -> int:
+    """Print registers and spill bytes of the kernel in the log of the build
+    this run made (``nvcc -Xptxas -v``); spills must be 0. Returns the
+    registers a thread."""
+    import re
+
+    regs = []
+    for line in lib.build_log.splitlines():
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            print(f"  {name}: {line.strip()}", flush=True)
+            check(m.group(1) == "0" and m.group(2) == "0",
+                  f"{name} spills registers: {line.strip()}")
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs.append(int(m.group(1)))
+            print(f"  {name}: {line.strip()}", flush=True)
+    check(len(regs) == 1, f"{name}: expected one kernel in the build log, "
+          f"found registers {regs}")
+    return regs[0]
+
+
+def bitwise(what: str, res, ref, planes) -> None:
+    """Output planes ``planes`` of the kernel equal the plain version's bit
+    for bit."""
+    import torch
+
+    bad = [k for k in planes if not torch.equal(res[k], ref[k])]
+    check(not bad, f"{what}: planes {bad} differ from the plain version")
+    print(f"  {what}: {len(planes)} planes bitwise equal to the plain "
+          f"version", flush=True)
+
+
+def chosen(mod) -> str:
+    p = mod.LAST_PLAN
+    check(p["threads_per_rollout"] == mod.THREADS_PER_ROLLOUT,
+          f"launched {p}, not {mod.THREADS_PER_ROLLOUT} threads a rollout")
+    return (f"G={p['threads_per_rollout']}, clusters of {p['cluster']} x "
+            f"{p['threads']} threads ({p['max_active_clusters']} at a time), "
+            f"{p['shared_bytes']} bytes of shared memory a block")
+
+
+def travel_step_us(mod, arrs, poses, slots, counters,
+                   depths=(8000, 40000)) -> dict:
+    """Cost of one settled-travel step: the scene's broad-phase bounds
+    (scalar slots ``slots``) are pushed out of the fingers' reach, so after
+    the object has come to rest every step takes the travel path (the group
+    votes and the servo update). Two depths; the difference over the extra
+    steps. The step counters (output planes ``counters``: full, cheap) must
+    show that both runs solved equally often."""
+    import torch
+
+    scal = arrs[-1].clone()
+    scal[:, 0, slots[0]] = -1e3
+    scal[:, 0, slots[1]] = 1e3
+    arrs = tuple(arrs[:-1]) + (scal,)
+    ms, solves = [], []
+    for steps in depths:
+        t, out = timed_cuda(lambda: mod.rollout_cuda(*arrs, poses, steps, 0,
+                                                     0), reps=2)
+        ms.append(t)
+        solves.append(float(sum(out[k].amax() for k in counters)))
+    check(solves[0] == solves[1] < depths[0] / 2,
+          f"travel timing: solve steps {solves} differ between the depths")
+    return {"us_per_step": 1e3 * (ms[1] - ms[0]) / (depths[1] - depths[0]),
+            "ms": ms, "depths": list(depths), "solve_steps": solves,
+            "plan": dict(mod.LAST_PLAN)}
 
 
 def k1_flops(p: int, s: int, steps: int, cfull, ccheap) -> float:
@@ -223,11 +307,13 @@ def phases_3d(dev) -> dict:
     poses = torch.as_tensor(datagen.pad_poses(engine2d.pose_grid()),
                             device=dev)
     dg_ms, dout = timed_cuda(lambda: rollout3d.rollout(*arrs8, poses), reps=2)
+    print(f"  K2 datagen 8x9088x800: {chosen(rollout3d)}", flush=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dref = profile_batch_ref(*arrs8, poses)
     torch.cuda.synchronize()
     dg_plain_ms = 1e3 * (time.perf_counter() - t0)
+    bitwise("K2 datagen 8x9088x800", dout, dref, range(12))
     do, dr = k2_view(dout, poses), k2_view(dref, poses)
     for k, v in do.items():
         check(v.shape == (8, 9088), f"datagen {k} shape")
@@ -288,6 +374,8 @@ def phases_3d(dev) -> dict:
                snapshot_step=SIM.eval_regrasp_3d)
     ev_ms, eout = timed_cuda(lambda: rollout3d.rollout(
         *arrs16, eposes, steps=SIM.eval_steps_3d, **ekw), reps=1, warm=False)
+    ev_plan = dict(rollout3d.LAST_PLAN)
+    print(f"  K2 verify 16x128x32000: {chosen(rollout3d)}", flush=True)
     eo = k2_view(eout, eposes)
     t0 = time.perf_counter()
     classes = [[three_class(eo["dth"][i, :nrot], NORM.threshold_3d[0]),
@@ -318,12 +406,13 @@ def phases_3d(dev) -> dict:
     # shortened eval: kernel vs plain over 2,400 steps
     skw = dict(steps=3 * SIM.eval_regrasp_3d, **ekw)
     se_ms, sout = timed_cuda(lambda: rollout3d.rollout(
-        *arrs16, eposes, **skw), reps=1, warm=False)
+        *arrs16, eposes, **skw), reps=3)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sref = profile_batch_ref(*arrs16, eposes, **skw)
     torch.cuda.synchronize()
     se_plain_ms = 1e3 * (time.perf_counter() - t0)
+    bitwise("K2 verify cut 16x128x2400", sout, sref, range(12))
     so = {k: v[:, :nrot] for k, v in k2_view(sout, eposes).items()}
     sr = {k: v[:, :nrot] for k, v in k2_view(sref, eposes).items()}
     se_stats = parity(so, sr, "K2 eval 16x128x2400 snapshot, kernel vs plain")
@@ -339,7 +428,10 @@ def phases_3d(dev) -> dict:
     se_bound, se_bound_by = bound_ms(
         k2_flops(256, skw["steps"], sout[9].cpu(), sout[10].cpu(),
                  sout[11].cpu()), k2_bytes(16, 256, 128))
-    out["verify"] = {"kernel_ms": ev_ms, "flops": ev_flops,
+    # padded lanes: 83 of each group's 128 rollouts repeat the last pose
+    pad_share = 1.0 - nrot / eposes.shape[0]
+    out["verify"] = {"kernel_ms": ev_ms, "flops": ev_flops, "plan": ev_plan,
+                     "padded_share": pad_share,
                      "bound_ms": ev_bound, "bound_by": ev_bound_by,
                      "full_steps_per_block": ev_full,
                      "cheap_steps_per_block": ev_cheap,
@@ -420,6 +512,8 @@ def phases_3d(dev) -> dict:
           f"mug_small): {call_s:.2f}s on the host clock, K2 "
           f"{call_k_ms:.0f} ms of it; full-solve steps per block "
           f"{call_full:.0f} of 32,000", flush=True)
+    out["travel"] = travel_step_us(rollout3d, arrs16, eposes, (25, 26),
+                                   (9, 10))
     out.update(design_loop_s=design_s, launches=launches,
                design_sweep_s=report["design_sweep"]["seconds"],
                verification_s=report["verification"]["seconds"],
@@ -460,16 +554,14 @@ def main() -> int:
                  "rollout3d": rollout3d.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
-        builds = {k: pool.submit(lib.build) for k, lib in libraries.items()}
+        builds = {k: pool.submit(lib.build, force=True)
+                  for k, lib in libraries.items()}
         for k, fut in builds.items():
             fut.result()
     build_s = time.perf_counter() - t0
     print(f"build: {len(libraries)} kernel source(s) in {build_s:.1f}s",
           flush=True)
-    for k, lib in libraries.items():
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {k}: {line.strip()}", flush=True)
+    registers = {k: ptxas_report(k, lib) for k, lib in libraries.items()}
     for lib in libraries.values():
         lib.get()
 
@@ -482,11 +574,18 @@ def main() -> int:
                             device=dev)
     check(poses.shape == (9088, 3), "padded datagen grid")
     dg_ms, out = timed_cuda(lambda: rollout2d.rollout(*arrs8, poses), reps=5)
+    dg_plan = dict(rollout2d.LAST_PLAN)
+    print(f"  K1 datagen 8x9088x200: {chosen(rollout2d)}", flush=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = profile_batch_ref(*arrs8, poses)
     torch.cuda.synchronize()
     dg_plain_ms = 1e3 * (time.perf_counter() - t0)
+    bitwise("K1 datagen 8x9088x200", out, ref, range(8))
+    dg_bound, dg_bound_by = bound_ms(
+        k1_flops(contour.shape[0], arrs8[2].shape[1], SIM.steps_2d,
+                 out[6].cpu(), out[7].cpu()),
+        k1_bytes(8, contour.shape[0], arrs8[2].shape[1], 9088))
     out_np = {k: v.cpu().numpy() for k, v in zip(NAMES, out)}
     ref_np = {k: v.cpu().numpy() for k, v in zip(NAMES, ref)}
     for k in NAMES:
@@ -498,7 +597,8 @@ def main() -> int:
           f"rollouts/s of the 9,000-pose grid), plain {dg_plain_ms:.0f} ms; "
           f"dtheta bitwise equal on {dg_exact:.4f} of lanes; full/cheap steps "
           f"per block {out_np['cfull'][:, ::128].mean():.1f}/"
-          f"{out_np['ccheap'][:, ::128].mean():.2f}", flush=True)
+          f"{out_np['ccheap'][:, ::128].mean():.2f}; bound {dg_bound:.2f} ms "
+          f"({dg_bound_by})", flush=True)
 
     gold = np.load(os.path.join(ROOT, "tests", "fixtures",
                                 "rollout2d_golden.npz"))
@@ -532,11 +632,16 @@ def main() -> int:
                snapshot_step=SIM.eval_regrasp_2d)
     ev_ms, eout = timed_cuda(lambda: rollout2d.rollout(*arrs16, eposes, **ekw),
                              reps=2)
+    ev_plan = dict(rollout2d.LAST_PLAN)
+    print(f"  K1 verify 16x384x8000: {chosen(rollout2d)}", flush=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eref = profile_batch_ref(*arrs16, eposes, **ekw)
     torch.cuda.synchronize()
     ev_plain_ms = 1e3 * (time.perf_counter() - t0)
+    # snapshot dtheta, dpos and the counters bitwise; the final pose, 7,800
+    # chaotic steps later, by the bars below
+    bitwise("K1 verify 16x384x8000", eout, eref, (0, 1, 2, 6, 7))
     eo = {k: v[:, :360].cpu().numpy() for k, v in zip(NAMES, eout)}
     er = {k: v[:, :360].cpu().numpy() for k, v in zip(NAMES, eref)}
     ev_stats = parity(eo, er, "eval 16x384x8000 snapshot, kernel vs plain")
@@ -649,13 +754,38 @@ def main() -> int:
 
     k2 = phases_3d(dev)
 
-    # ---- 8. summary -------------------------------------------------------
+    # ---- 8. a settled-travel step ----------------------------------------
+    k1_travel = travel_step_us(rollout2d, arrs16, eposes, (14, 15), (6, 7))
+    for name, tr in (("K1", k1_travel), ("K2", k2["travel"])):
+        print(f"{name} settled-travel step (fingers out of reach, "
+              f"G={tr['plan']['threads_per_rollout']}, clusters of "
+              f"{tr['plan']['cluster']} x {tr['plan']['threads']} threads): "
+              f"{tr['us_per_step']:.3f} us/step "
+              f"({tr['ms'][0]:.1f} ms at {tr['depths'][0]} steps, "
+              f"{tr['ms'][1]:.1f} ms at {tr['depths'][1]}; "
+              f"{tr['solve_steps'][0]:.0f} solve steps in both)", flush=True)
+
+    # earlier rows of PERF.md (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W):
+    # one thread a rollout, one 128-thread block a pose group
+    earlier = {"K1 verify 16x384x8000": (2744.0, ev_ms),
+               "K1 datagen 8x9088x200": (177.9, dg_ms),
+               "K2 verify 16x128x32000": (11448.0, k2["verify"]["kernel_ms"]),
+               "K2 datagen 8x9088x800": (1300.0, k2["datagen"]["kernel_ms"])}
+    for what, (old, new) in earlier.items():
+        print(f"{what}: {new:.1f} ms/call now, {old:.1f} ms with one thread "
+              f"a rollout (earlier row): {old / new:.2f}x", flush=True)
+
+    # ---- 9. summary -------------------------------------------------------
     summary = {
-        "card": card, "build_s": build_s,
+        "card": card, "build_s": build_s, "registers": registers,
+        "travel_k1": k1_travel,
         "datagen": {"kernel_ms": dg_ms, "plain_ms": dg_plain_ms,
+                    "bound_ms": dg_bound, "bound_by": dg_bound_by,
+                    "plan": dg_plan,
                     "rollouts_per_s": rollouts / dg_ms * 1e3,
                     "parity": dg_stats, "dtheta_bitwise_equal": dg_exact},
         "eval": {"kernel_ms": ev_ms, "plain_ms": ev_plain_ms,
+                 "plan": ev_plan,
                  "parity": ev_stats, "final_theta_corr": fcorr,
                  "class_agreement_min": min(agree), "flops": ev_flops,
                  "bound_ms": ev_bound, "host_scene_s": host_scene_s,
@@ -679,6 +809,12 @@ def main() -> int:
         "ms": ev_ms, "plain_ms": ev_plain_ms, "bound_ms": ev_bound,
         "bound_by": ev_bound_by, "library_ms": None,
         "shape": "16 pairs x 384 poses x 8000 steps (verification)",
+        "threads_per_rollout": ev_plan["threads_per_rollout"],
+        "cluster": ev_plan["cluster"],
+        "registers": registers["rollout2d"],
+        "datagen_ms": dg_ms, "datagen_plain_ms": dg_plain_ms,
+        "datagen_bound_ms": dg_bound,
+        "travel_us_per_step": k1_travel["us_per_step"],
     }, {
         "name": "rollout3d", "route": "cuda",
         "source": "dgdm_tpu_torch/csrc/rollout3d.cu",
@@ -693,6 +829,10 @@ def main() -> int:
         "bound_by": k2["short_eval"]["bound_by"], "library_ms": None,
         "shape": "16 pairs x 128 poses x 2400 steps (verification, depth "
                  "cut from 32000)",
+        "threads_per_rollout": k2["verify"]["plan"]["threads_per_rollout"],
+        "cluster": k2["verify"]["plan"]["cluster"],
+        "registers": registers["rollout3d"],
+        "travel_us_per_step": k2["travel"]["us_per_step"],
         "verify_ms": k2["verify"]["kernel_ms"],
         "verify_bound_ms": k2["verify"]["bound_ms"],
         "datagen_ms": k2["datagen"]["kernel_ms"],

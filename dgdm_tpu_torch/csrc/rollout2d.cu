@@ -1,43 +1,65 @@
 // 2D squeeze rollouts (kernel K1) for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_rollout_kernel` of dgdm_tpu/sim/pallas2d.py
-// (Newton contact solver). One CUDA block of 128 threads runs one
-// (pair, 128-pose block) — the Pallas grid cell — for all steps; each thread
-// carries one rollout's state in registers. The pair's finger coefficients,
-// body-frame contour, support points and scalars (~2.5 KB) sit in shared
-// memory. The two block-uniform branches of the Pallas kernel keep their
-// per-block granularity: the settled-travel gate (block max of |v| plus the
-// broad-phase reachability test) and the full-vs-cheap solve gate are
-// __syncthreads_or votes, so results do not depend on the warp layout and
-// match the Pallas semantics lane for lane (padded lanes vote too).
+// (Newton contact solver). The Pallas grid cell, one (pair, 128-pose group),
+// is one thread block cluster here: G threads of a warp carry one rollout
+// and share its contour and support points (lane `sub` takes p = sub,
+// sub + G, ...; a count that G does not divide leaves the upper lanes one
+// point short), so a group is 128 * G threads in Layout<G>::kCluster blocks
+// (csrc/rollout_common.cuh). Every lane of a rollout holds the rollout's
+// state and runs the 5x5 / 3x3 Cholesky solves and the line search
+// redundantly; only the point sums cross lanes (float64 partial sums, an xor
+// butterfly of shuffles, one rounding to float32). The pair's finger
+// coefficients, body-frame contour, support points and constants (~2.5 KB)
+// sit in each block's shared memory, and so do the quantities of a
+// rollout's step that stay fixed during its solve (struct Lane). The two
+// group-uniform branches of the Pallas kernel keep their 128-pose
+// granularity as GroupVote votes over the cluster: the settled-travel gate
+// (group max of |v| and the broad-phase reachability test, two bits behind
+// one barrier) and the full-vs-cheap solve gate, so results do not depend on
+// the thread layout and match the Pallas semantics lane for lane (padded
+// lanes vote too).
+//
+// G is a template parameter of the kernel body and K1 is built for G = 16:
+// 256 threads a block, two blocks an SM, clusters of 8, at most 128
+// registers a thread and 0 bytes of spills (csrc/rollout_common.cuh says
+// what was measured against it).
 //
 // Bound: operations, not bytes. A call reads ~2.5 KB per pair plus 12 bytes
 // per pose and writes 32 bytes per pose; each full-solve step costs a few
-// thousand flops per contour point. Per-point contact geometry is recomputed
-// in each pass over the points (two passes per Newton iteration) instead of
-// being held in ~1,300 floats per thread: everything stays in registers and
-// shared memory, nothing of a step touches device memory.
+// thousand flops per contour point, most of them the point's contact
+// geometry, which does not change during a solve. So each lane computes its
+// points' geometry once per solve into a slab of shared memory (9 floats a
+// point, 7 points a lane at the package's 100 contour points: 63 KB a block,
+// two blocks an SM) and the six passes over the points of a solve's three
+// Newton iterations read it back. Measured on an NVIDIA H100 80GB HBM3 at
+// 700 W against a body that recomputed the geometry in every pass (since
+// removed): 358 ms against 528 ms at 16 pairs x 384 poses x 8,000 steps, 114
+// against 171 ms at 8 x 9,088 x 200. The slab bounds the point count: the
+// launcher refuses a contour that needs more shared memory than a block may
+// have (P > 384 on the H100; above ~170 points an SM holds one block, not
+// two). Nothing of a step touches device memory.
 //
 // Numerics: float32 state and elementwise physics, compiled without fast
 // math and with -fmad=false, so that each expression rounds like the plain
 // PyTorch version (dgdm_tpu_torch/sim/rollout2d_ref.py), which keeps the
 // Pallas operand order. Sums over contour and support points accumulate in
-// float64 and round once to float32 (the plain version does the same), so
-// they do not depend on summation order: the squeeze is chaotic enough that
-// reordered float32 sums move ~1% of the 9,000-pose grid's lanes by >1e-3
-// rad in 200 steps. rsqrt is 1/sqrtf, round is rintf (half to even), mod is
-// floor-mod, max/min propagate NaN like torch.maximum/minimum.
+// float64 and round once to float32 (the plain version does the same; with
+// sum_group = G it also adds in this kernel's order): the squeeze is chaotic
+// enough that reordered float32 sums move ~1% of the 9,000-pose grid's lanes
+// by >1e-3 rad in 200 steps. rsqrt is 1/sqrtf, round is rintf (half to
+// even), mod is floor-mod, max/min propagate NaN like torch.maximum/minimum.
 //
 // C interface (bound with ctypes by dgdm_tpu_torch/sim/rollout2d.py): the
 // launch runs on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "rollout_common.cuh"
 
 namespace {
 
-constexpr int kLane = 128;
+constexpr int kLane = rollout::kGroup;
+constexpr int kThreadsPerRollout = 16;   // the layout K1 is built for
 constexpr int kSeg = 6;      // cubic segments per finger curve
 constexpr int kScal = 16;    // per-pair scalar slots (rollout2d.scene_arrays)
 
@@ -53,16 +75,11 @@ struct Rollout2DParams {
 
 namespace {
 
-__device__ __forceinline__ float mx(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ float mn(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return mn(mx(x, lo), hi);
-}
-__device__ __forceinline__ float rsq(float x) { return 1.0f / sqrtf(x); }
+using rollout::clampf;
+using rollout::group_sum;
+using rollout::mn;
+using rollout::mx;
+using rollout::rsq;
 
 __device__ __forceinline__ float hub(float v, float w, float cap) {
   float av = fabsf(v);
@@ -71,13 +88,25 @@ __device__ __forceinline__ float hub(float v, float w, float cap) {
   return (w * av <= cap) ? q : lin;
 }
 
-// Per-pair constants, read once from shared memory into registers.
+// Per-pair constants, filled once per block in shared memory and read from
+// there where they are used.
 struct Pair {
   float mass, inertia, fmass_l, fmass_r, com_bx, com_by;
   float inv_m, inv_i, inv_fml, inv_fmr;
   float mu_plane, mu_finger, mu_torsion, k_con, b_con, unload, rough, c_r2;
-  float broad_a, broad_b;
+  float broad_a, broad_b, w_w, mg_dt;
 };
+constexpr int kPairFloats = sizeof(Pair) / sizeof(float);
+
+// Quantities of one rollout's normal step that stay fixed during its solve,
+// and the solve's unconstrained velocity uu. One per rollout in shared
+// memory: lane 0 of the rollout fills it, all its lanes read it.
+struct Lane {
+  float c, s, cx, cy, ql, qr, vx, vy, om, qdl, qdr, n_total;
+  float uu[5];
+};
+// odd stride in floats: conflict-free when every thread reads its own
+constexpr int kLaneStride = (sizeof(Lane) / sizeof(float)) | 1;
 
 // Contact geometry of one contour point and the solve's derived weights.
 struct Geo {
@@ -95,14 +124,15 @@ struct Shared {
 };
 
 __device__ __forceinline__ void point_geo(
-    const Shared& sh, const Pair& pc, const Rollout2DParams& prm, int p,
-    float c, float s, float cx, float cy, float ql, float qr, float vx,
-    float vy, float om, float qdl, float qdr, float d_imp, Geo& g) {
+    const Shared& sh, const Pair& pc, const Rollout2DParams& prm,
+    const Lane& L, int p, Geo& g) {
+  const float c = L.c, s = L.s;
+  const float d_imp = prm.impedance;
   float cbx = sh.cbx[p], cby = sh.cby[p];
   float rx = cbx * c - cby * s;
   float ry = cbx * s + cby * c;
-  float px = cx + rx;
-  float py = cy + ry;
+  float px = L.cx + rx;
+  float py = L.cy + ry;
   bool x_in = (px >= prm.x0f) && (px <= prm.x1f);
   float xc = clampf(px, prm.x0f, prm.x1f);
   int seg = (int)((xc - prm.x0f) * prm.inv_h);
@@ -114,8 +144,8 @@ __device__ __forceinline__ void point_geo(
   float d0 = (3.0f * cl[3] * t + 2.0f * cl[2]) * t + cl[1];
   float f1 = ((cr[3] * t + cr[2]) * t + cr[1]) * t + cr[0];
   float d1 = (3.0f * cr[3] * t + 2.0f * cr[2]) * t + cr[1];
-  float surf_l = prm.surf_l0 + ql + f0;
-  float surf_r = prm.surf_r0 + qr + f1;
+  float surf_l = prm.surf_l0 + L.ql + f0;
+  float surf_r = prm.surf_r0 + L.qr + f1;
   float inv_l = rsq(1.0f + d0 * d0);
   float inv_r = rsq(1.0f + d1 * d1);
   float depth_l = (surf_l - py) * inv_l;
@@ -131,8 +161,8 @@ __device__ __forceinline__ void point_geo(
   float inv_fm = is_l ? pc.inv_fml : pc.inv_fmr;
   float me_n = 1.0f / (pc.inv_m + rxn * rxn * pc.inv_i + ny * ny * inv_fm);
   float me_t = 1.0f / (pc.inv_m + rxt * rxt * pc.inv_i + ty * ty * inv_fm);
-  float qd_c0 = is_l ? qdl : qdr;
-  float vn0 = (vx - om * ry) * nx + (vy + om * rx - qd_c0) * ny;
+  float qd_c0 = is_l ? L.qdl : L.qdr;
+  float vn0 = (L.vx - L.om * ry) * nx + (L.vy + L.om * rx - qd_c0) * ny;
   g.rx = rx; g.ry = ry; g.nx = nx; g.ny = ny; g.tx = tx; g.ty = ty;
   g.rxn = rxn; g.rxt = rxt;
   g.sl = is_l ? 1.0f : 0.0f;
@@ -143,6 +173,34 @@ __device__ __forceinline__ void point_geo(
   g.w_tt = act * me_t / pc.c_r2;
   float depth_el = act * clampf(depth, 0.0f, prm.depth_el_cap);
   g.cap_rough = pc.rough * me_t * depth_el;
+}
+
+// A lane's contact geometry, held across the passes of a full solve: 9 of
+// Geo's 14 floats per point in the thread's own column of a shared-memory
+// slab ((point, field) rows of T threads, so a warp's accesses fall in
+// distinct banks); the other five are recomputed with the expressions
+// point_geo uses.
+constexpr int kHeld = 9;
+
+template <int T>
+__device__ __forceinline__ void geo_store(float* slab, int k, const Geo& g) {
+  float* q = slab + k * kHeld * T;
+  q[0 * T] = g.rx; q[1 * T] = g.ry; q[2 * T] = g.nx; q[3 * T] = g.ny;
+  q[4 * T] = g.sl; q[5 * T] = g.tgt_n; q[6 * T] = g.w_nn; q[7 * T] = g.w_tt;
+  q[8 * T] = g.cap_rough;
+}
+
+template <int T>
+__device__ __forceinline__ void geo_load(const float* slab, int k, Geo& g) {
+  const float* q = slab + k * kHeld * T;
+  g.rx = q[0 * T]; g.ry = q[1 * T]; g.nx = q[2 * T]; g.ny = q[3 * T];
+  g.sl = q[4 * T]; g.tgt_n = q[5 * T]; g.w_nn = q[6 * T]; g.w_tt = q[7 * T];
+  g.cap_rough = q[8 * T];
+  g.sr = 1.0f - g.sl;
+  g.rxn = g.rx * g.ny - g.ry * g.nx;
+  g.tx = -g.ny;
+  g.ty = g.nx;
+  g.rxt = g.rx * g.ty - g.ry * g.tx;
 }
 
 __device__ __forceinline__ void point_vel(const Geo& g, const float* u,
@@ -162,145 +220,166 @@ __device__ __forceinline__ float e_unc(const Pair& pc, const float* u,
                  + pc.fmass_l * (d3 * d3) + pc.fmass_r * (d4 * d4));
 }
 
+// One plane support point in the world frame and its friction weight.
+struct Sup {
+  float rsx, rsy, w_s;
+};
+
+__device__ __forceinline__ void support_geo(const Shared& sh, const Pair& pc,
+                                            const Lane& L, int k, Sup& g) {
+  g.rsx = sh.sbx[k] * L.c - sh.sby[k] * L.s;
+  g.rsy = sh.sbx[k] * L.s + sh.sby[k] * L.c;
+  float a_s = pc.inv_m + (g.rsx * g.rsx + g.rsy * g.rsy) * pc.inv_i * 0.5f;
+  g.w_s = 1.0f / (pc.c_r2 * a_s);
+}
+
+// Plane friction sums of one Newton iteration at u: the force and moment,
+// and the Hessian terms. `load(k)` is support k's normal load n_i.
+struct SupSums {
+  float fx, fy, m, fac, f0, f1, f2;
+};
+
+template <int G, class Load>
+__device__ __forceinline__ void support_sums(
+    const Shared& sh, const Pair& pc, const Rollout2DParams& prm,
+    const Lane& L, int S, int sub, const float* u, Load load, SupSums& o) {
+  double s_fx = 0.0, s_fy = 0.0, s_m = 0.0, s_fac = 0.0, s_f0 = 0.0,
+         s_f1 = 0.0, s_f2 = 0.0;
+  for (int k = sub; k < S; k += G) {
+    Sup g;
+    support_geo(sh, pc, L, k, g);
+    const float rsx = g.rsx, rsy = g.rsy;
+    float cap_s = pc.mu_plane * load(k) * prm.dt;
+    float vsx = u[0] - u[2] * rsy;
+    float vsy = u[1] + u[2] * rsx;
+    float vs = sqrtf(vsx * vsx + vsy * vsy + 1e-16f);
+    float fac = mn(g.w_s, cap_s / vs);
+    float fx = fac * vsx, fy = fac * vsy;
+    s_fx = s_fx + (double)fx;
+    s_fy = s_fy + (double)fy;
+    s_m = s_m + (double)(rsx * fy - rsy * fx);
+    s_fac = s_fac + (double)fac;
+    s_f0 = s_f0 + (double)(fac * (-rsy));
+    s_f1 = s_f1 + (double)(fac * rsx);
+    s_f2 = s_f2 + (double)(fac * (rsx * rsx + rsy * rsy));
+  }
+  o.fx = group_sum<G>(s_fx);
+  o.fy = group_sum<G>(s_fy);
+  o.m = group_sum<G>(s_m);
+  o.fac = group_sum<G>(s_fac);
+  o.f0 = group_sum<G>(s_f0);
+  o.f1 = group_sum<G>(s_f1);
+  o.f2 = group_sum<G>(s_f2);
+}
+
 // Coupled semi-smooth Newton on the 5-DOF soft-constraint energy
-// (pallas2d.py:359-506): u = (vx, vy, om, qdl, qdr), in/out.
+// (pallas2d.py:359-506): u = (vx, vy, om, qdl, qdr), in/out. Lane `sub` of
+// the rollout's G lanes takes the points sub, sub + G, ... The lane's
+// geometry is computed once, ahead of the Newton iterations, into `slab`
+// (the thread's column), and the passes read it back.
+template <int G>
 __device__ __forceinline__ void full_solve(
-    const Shared& sh, const Pair& pc, const Rollout2DParams& prm, int P,
-    int S, float c, float s, float cx, float cy, float ql, float qr,
-    float vx, float vy, float om, float qdl, float qdr, float n_total,
-    float w_w, float mg_dt, float d_imp, const float* uu, float* u) {
+    const Shared& sh, const Pair& pc, const Rollout2DParams& prm,
+    const Lane& L, int P, int S, int sub, float* slab, float* u) {
+  constexpr int kThreads = rollout::Layout<G>::kThreads;
+  const float* uu = L.uu;
+  const float n_total = L.n_total;
+  const float w_w = pc.w_w;
+  for (int p = sub, k = 0; p < P; p += G, ++k) {
+    Geo g;
+    point_geo(sh, pc, prm, L, p, g);
+    geo_store<kThreads>(slab, k, g);
+  }
   for (int it = 0; it < prm.newton_iters; ++it) {
     // ---- pass over points: grip load, gradient and Hessian sums ----
-    double s_lam = 0.0;
-    double s_lnx = 0.0, s_ftx = 0.0, s_lny = 0.0, s_fty = 0.0;
-    double s_lrxn = 0.0, s_ftrxt = 0.0, s_g3 = 0.0, s_g4 = 0.0;
-    double Hs[5][5];
+    float lam_s, lnx, ftx, lny, fty, lrxn, ftrxt, g3, g4;
+    float H[5][5];
+    {
+      double s_lam = 0.0;
+      double s_lnx = 0.0, s_ftx = 0.0, s_lny = 0.0, s_fty = 0.0;
+      double s_lrxn = 0.0, s_ftrxt = 0.0, s_g3 = 0.0, s_g4 = 0.0;
+      double Hs[5][5];
 #pragma unroll
-    for (int a = 0; a < 5; ++a)
+      for (int a = 0; a < 5; ++a)
 #pragma unroll
-      for (int b = 0; b < 5; ++b) Hs[a][b] = 0.0;
-    for (int p = 0; p < P; ++p) {
-      Geo g;
-      point_geo(sh, pc, prm, p, c, s, cx, cy, ql, qr, vx, vy, om, qdl, qdr,
-                d_imp, g);
-      float vn, vt;
-      point_vel(g, u, vn, vt);
-      float res = mx(g.tgt_n - vn, 0.0f);
-      float lam = g.w_nn * res;
-      s_lam = s_lam + (double)lam;
-      float cap_t = pc.mu_finger * lam + g.cap_rough;
-      float f_t = clampf(g.w_tt * vt, -cap_t, cap_t);
-      s_lnx = s_lnx + (double)(lam * g.nx);
-      s_ftx = s_ftx + (double)(f_t * g.tx);
-      s_lny = s_lny + (double)(lam * g.ny);
-      s_fty = s_fty + (double)(f_t * g.ty);
-      s_lrxn = s_lrxn + (double)(lam * g.rxn);
-      s_ftrxt = s_ftrxt + (double)(f_t * g.rxt);
-      s_g3 = s_g3 + (double)(g.sl * (lam * g.ny - f_t * g.ty));
-      s_g4 = s_g4 + (double)(g.sr * (lam * g.ny - f_t * g.ty));
-      float on_n = g.w_nn * ((res > 0.0f) ? 1.0f : 0.0f);
-      float on_t = g.w_tt * ((fabsf(g.w_tt * vt) <= cap_t) ? 1.0f : 0.0f);
-      float jn[5] = {g.nx, g.ny, g.rxn, -g.ny * g.sl, -g.ny * g.sr};
-      float jt[5] = {g.tx, g.ty, g.rxt, -g.ty * g.sl, -g.ty * g.sr};
+        for (int b = 0; b < 5; ++b) Hs[a][b] = 0.0;
+      for (int p = sub, k = 0; p < P; p += G, ++k) {
+        Geo g;
+        geo_load<kThreads>(slab, k, g);
+        float vn, vt;
+        point_vel(g, u, vn, vt);
+        float res = mx(g.tgt_n - vn, 0.0f);
+        float lam = g.w_nn * res;
+        s_lam = s_lam + (double)lam;
+        float cap_t = pc.mu_finger * lam + g.cap_rough;
+        float f_t = clampf(g.w_tt * vt, -cap_t, cap_t);
+        s_lnx = s_lnx + (double)(lam * g.nx);
+        s_ftx = s_ftx + (double)(f_t * g.tx);
+        s_lny = s_lny + (double)(lam * g.ny);
+        s_fty = s_fty + (double)(f_t * g.ty);
+        s_lrxn = s_lrxn + (double)(lam * g.rxn);
+        s_ftrxt = s_ftrxt + (double)(f_t * g.rxt);
+        s_g3 = s_g3 + (double)(g.sl * (lam * g.ny - f_t * g.ty));
+        s_g4 = s_g4 + (double)(g.sr * (lam * g.ny - f_t * g.ty));
+        float on_n = g.w_nn * ((res > 0.0f) ? 1.0f : 0.0f);
+        float on_t = g.w_tt * ((fabsf(g.w_tt * vt) <= cap_t) ? 1.0f : 0.0f);
+        float jn[5] = {g.nx, g.ny, g.rxn, -g.ny * g.sl, -g.ny * g.sr};
+        float jt[5] = {g.tx, g.ty, g.rxt, -g.ty * g.sl, -g.ty * g.sr};
 #pragma unroll
-      for (int a = 0; a < 5; ++a) {
-        float yn = on_n * jn[a];
-        float yt = on_t * jt[a];
+        for (int a = 0; a < 5; ++a) {
+          float yn = on_n * jn[a];
+          float yt = on_t * jt[a];
 #pragma unroll
-        for (int b = a; b < 5; ++b) {
-          if (a == 3 && b == 4) continue;
-          Hs[a][b] = Hs[a][b] + (double)(yn * jn[b] + yt * jt[b]);
+          for (int b = a; b < 5; ++b) {
+            if (a == 3 && b == 4) continue;
+            Hs[a][b] = Hs[a][b] + (double)(yn * jn[b] + yt * jt[b]);
+          }
         }
       }
+      lam_s = group_sum<G>(s_lam);
+      lnx = group_sum<G>(s_lnx);
+      ftx = group_sum<G>(s_ftx);
+      lny = group_sum<G>(s_lny);
+      fty = group_sum<G>(s_fty);
+      lrxn = group_sum<G>(s_lrxn);
+      ftrxt = group_sum<G>(s_ftrxt);
+      g3 = group_sum<G>(s_g3);
+      g4 = group_sum<G>(s_g4);
+#pragma unroll
+      for (int a = 0; a < 5; ++a)
+#pragma unroll
+        for (int b = a; b < 5; ++b)
+          H[a][b] = (a == 3 && b == 4) ? 0.0f : group_sum<G>(Hs[a][b]);
     }
-    float grip = (float)s_lam / mg_dt;
+    float grip = lam_s / pc.mg_dt;
     // ---- pass over plane supports: n_i, torsion cap, friction terms ----
+    auto load = [&](int k) {
+      return sh.sw[k] * n_total / (1.0f + pc.unload * grip);
+    };
     double s_ni = 0.0;
-    for (int k = 0; k < S; ++k) {
-      float n_i = sh.sw[k] * n_total / (1.0f + pc.unload * grip);
-      s_ni = s_ni + (double)n_i;
-    }
-    float cap_w = pc.mu_torsion * (float)s_ni * prm.dt;
-    double s_fx = 0.0, s_fy = 0.0, s_m = 0.0, s_fac = 0.0, s_f0 = 0.0,
-           s_f1 = 0.0, s_f2 = 0.0;
-    for (int k = 0; k < S; ++k) {
-      float rsx = sh.sbx[k] * c - sh.sby[k] * s;
-      float rsy = sh.sbx[k] * s + sh.sby[k] * c;
-      float a_s = pc.inv_m + (rsx * rsx + rsy * rsy) * pc.inv_i * 0.5f;
-      float w_s = 1.0f / (pc.c_r2 * a_s);
-      float n_i = sh.sw[k] * n_total / (1.0f + pc.unload * grip);
-      float cap_s = pc.mu_plane * n_i * prm.dt;
-      float vsx = u[0] - u[2] * rsy;
-      float vsy = u[1] + u[2] * rsx;
-      float vs = sqrtf(vsx * vsx + vsy * vsy + 1e-16f);
-      float fac = mn(w_s, cap_s / vs);
-      float fx = fac * vsx, fy = fac * vsy;
-      s_fx = s_fx + (double)fx;
-      s_fy = s_fy + (double)fy;
-      s_m = s_m + (double)(rsx * fy - rsy * fx);
-      s_fac = s_fac + (double)fac;
-      s_f0 = s_f0 + (double)(fac * (-rsy));
-      s_f1 = s_f1 + (double)(fac * rsx);
-      s_f2 = s_f2 + (double)(fac * (rsx * rsx + rsy * rsy));
-    }
+    for (int k = sub; k < S; k += G) s_ni = s_ni + (double)load(k);
+    float cap_w = pc.mu_torsion * group_sum<G>(s_ni) * prm.dt;
+    SupSums ss;
+    support_sums<G>(sh, pc, prm, L, S, sub, u, load, ss);
     float f_w = clampf(w_w * u[2], -cap_w, cap_w);
     float grad[5];
-    grad[0] = pc.mass * (u[0] - uu[0]) - (float)s_lnx + (float)s_ftx
-        + (float)s_fx;
-    grad[1] = pc.mass * (u[1] - uu[1]) - (float)s_lny + (float)s_fty
-        + (float)s_fy;
-    grad[2] = pc.inertia * (u[2] - uu[2]) - (float)s_lrxn + (float)s_ftrxt
-        + (float)s_m + f_w;
-    grad[3] = pc.fmass_l * (u[3] - uu[3]) + (float)s_g3;
-    grad[4] = pc.fmass_r * (u[4] - uu[4]) + (float)s_g4;
-    float H[5][5];
-#pragma unroll
-    for (int a = 0; a < 5; ++a)
-#pragma unroll
-      for (int b = 0; b < 5; ++b) H[a][b] = (float)Hs[a][b];
-    H[0][0] = H[0][0] + ((float)s_fac + pc.mass);
-    H[1][1] = H[1][1] + ((float)s_fac + pc.mass);
-    H[0][2] = H[0][2] + (float)s_f0;
-    H[1][2] = H[1][2] + (float)s_f1;
+    grad[0] = pc.mass * (u[0] - uu[0]) - lnx + ftx + ss.fx;
+    grad[1] = pc.mass * (u[1] - uu[1]) - lny + fty + ss.fy;
+    grad[2] = pc.inertia * (u[2] - uu[2]) - lrxn + ftrxt + ss.m + f_w;
+    grad[3] = pc.fmass_l * (u[3] - uu[3]) + g3;
+    grad[4] = pc.fmass_r * (u[4] - uu[4]) + g4;
+    H[0][0] = H[0][0] + (ss.fac + pc.mass);
+    H[1][1] = H[1][1] + (ss.fac + pc.mass);
+    H[0][2] = H[0][2] + ss.f0;
+    H[1][2] = H[1][2] + ss.f1;
     H[2][2] = H[2][2]
-        + ((float)s_f2 + w_w * ((fabsf(w_w * u[2]) <= cap_w) ? 1.0f : 0.0f)
+        + (ss.f2 + w_w * ((fabsf(w_w * u[2]) <= cap_w) ? 1.0f : 0.0f)
            + pc.inertia);
     H[3][3] = H[3][3] + pc.fmass_l;
     H[4][4] = H[4][4] + pc.fmass_r;
 
-    // ---- unrolled 5x5 Cholesky solve of H d = -grad ----
-    float L[5][5], Ld[5];
-#pragma unroll
-    for (int a = 0; a < 5; ++a) {
-      float sa = H[a][a];
-#pragma unroll
-      for (int k = 0; k < a; ++k) sa = sa - L[a][k] * L[a][k];
-      float dinv = rsq(mx(sa, 1e-12f));
-      Ld[a] = dinv;
-#pragma unroll
-      for (int b = a + 1; b < 5; ++b) {
-        float s2 = H[a][b];
-#pragma unroll
-        for (int k = 0; k < a; ++k) s2 = s2 - L[b][k] * L[a][k];
-        L[b][a] = s2 * dinv;
-      }
-    }
-    float yv[5], dv[5];
-#pragma unroll
-    for (int a = 0; a < 5; ++a) {
-      float sa = -grad[a];
-#pragma unroll
-      for (int k = 0; k < a; ++k) sa = sa - L[a][k] * yv[k];
-      yv[a] = sa * Ld[a];
-    }
-#pragma unroll
-    for (int a = 4; a >= 0; --a) {
-      float sa = yv[a];
-#pragma unroll
-      for (int k = a + 1; k < 5; ++k) sa = sa - L[k][a] * dv[k];
-      dv[a] = sa * Ld[a];
-    }
-    float u1[5], u2[5];
+    float dv[5], u1[5], u2[5];
+    rollout::cholesky_solve<5>(H, grad, dv);
 #pragma unroll
     for (int a = 0; a < 5; ++a) {
       u1[a] = u[a] + dv[a];
@@ -309,10 +388,9 @@ __device__ __forceinline__ void full_solve(
 
     // ---- line search {1, 0.5}: energies of u, u1, u2 ----
     double en0 = 0.0, en1 = 0.0, en2 = 0.0;
-    for (int p = 0; p < P; ++p) {
+    for (int p = sub, k = 0; p < P; p += G, ++k) {
       Geo g;
-      point_geo(sh, pc, prm, p, c, s, cx, cy, ql, qr, vx, vy, om, qdl, qdr,
-                d_imp, g);
+      geo_load<kThreads>(slab, k, g);
       float vn, vt;
       point_vel(g, u, vn, vt);
       float res = mx(g.tgt_n - vn, 0.0f);
@@ -326,13 +404,11 @@ __device__ __forceinline__ void full_solve(
       en2 = en2 + (double)(0.5f * g.w_nn * res * res + hub(vt, g.w_tt, cap_t));
     }
     double es0 = 0.0, es1 = 0.0, es2 = 0.0;
-    for (int k = 0; k < S; ++k) {
-      float rsx = sh.sbx[k] * c - sh.sby[k] * s;
-      float rsy = sh.sbx[k] * s + sh.sby[k] * c;
-      float a_s = pc.inv_m + (rsx * rsx + rsy * rsy) * pc.inv_i * 0.5f;
-      float w_s = 1.0f / (pc.c_r2 * a_s);
-      float n_i = sh.sw[k] * n_total / (1.0f + pc.unload * grip);
-      float cap_s = pc.mu_plane * n_i * prm.dt;
+    for (int k = sub; k < S; k += G) {
+      Sup g;
+      support_geo(sh, pc, L, k, g);
+      const float rsx = g.rsx, rsy = g.rsy, w_s = g.w_s;
+      float cap_s = pc.mu_plane * load(k) * prm.dt;
       float vsx = u[0] - u[2] * rsy, vsy = u[1] + u[2] * rsx;
       es0 = es0 + (double)hub(sqrtf(vsx * vsx + vsy * vsy + 1e-16f), w_s, cap_s);
       vsx = u1[0] - u1[2] * rsy; vsy = u1[1] + u1[2] * rsx;
@@ -340,11 +416,11 @@ __device__ __forceinline__ void full_solve(
       vsx = u2[0] - u2[2] * rsy; vsy = u2[1] + u2[2] * rsx;
       es2 = es2 + (double)hub(sqrtf(vsx * vsx + vsy * vsy + 1e-16f), w_s, cap_s);
     }
-    float e0 = e_unc(pc, u, uu) + (float)en0 + (float)es0
+    float e0 = e_unc(pc, u, uu) + group_sum<G>(en0) + group_sum<G>(es0)
         + hub(u[2], w_w, cap_w);
-    float e1 = e_unc(pc, u1, uu) + (float)en1 + (float)es1
+    float e1 = e_unc(pc, u1, uu) + group_sum<G>(en1) + group_sum<G>(es1)
         + hub(u1[2], w_w, cap_w);
-    float e2 = e_unc(pc, u2, uu) + (float)en2 + (float)es2
+    float e2 = e_unc(pc, u2, uu) + group_sum<G>(en2) + group_sum<G>(es2)
         + hub(u2[2], w_w, cap_w);
     bool best12 = e1 <= e2;
     float eb = best12 ? e1 : e2;
@@ -355,46 +431,31 @@ __device__ __forceinline__ void full_solve(
   }
 }
 
-// No finger contact reachable in the block: plane friction + torsion only,
+// No finger contact reachable in the group: plane friction + torsion only,
 // 2 Newton iterations on the 3-DOF subproblem (pallas2d.py:508-580).
-__device__ __forceinline__ void cheap_solve(const Shared& sh, const Pair& pc,
-                            const Rollout2DParams& prm, int S, float c,
-                            float s, float n_total, float w_w,
-                            const float* uu, float* u) {
+template <int G>
+__device__ __forceinline__ void cheap_solve(
+    const Shared& sh, const Pair& pc, const Rollout2DParams& prm,
+    const Lane& L, int S, int sub, float* u) {
+  const float* uu = L.uu;
+  const float n_total = L.n_total;
+  const float w_w = pc.w_w;
+  auto load = [&](int k) { return sh.sw[k] * n_total; };
   double s_ni = 0.0;
-  for (int k = 0; k < S; ++k) s_ni = s_ni + (double)(sh.sw[k] * n_total);
-  float cap_w = pc.mu_torsion * (float)s_ni * prm.dt;
+  for (int k = sub; k < S; k += G) s_ni = s_ni + (double)load(k);
+  float cap_w = pc.mu_torsion * group_sum<G>(s_ni) * prm.dt;
   for (int it = 0; it < 2; ++it) {
-    double s_fx = 0.0, s_fy = 0.0, s_m = 0.0, s_fac = 0.0, s_f0 = 0.0,
-           s_f1 = 0.0, s_f2 = 0.0;
-    for (int k = 0; k < S; ++k) {
-      float rsx = sh.sbx[k] * c - sh.sby[k] * s;
-      float rsy = sh.sbx[k] * s + sh.sby[k] * c;
-      float a_s = pc.inv_m + (rsx * rsx + rsy * rsy) * pc.inv_i * 0.5f;
-      float w_s = 1.0f / (pc.c_r2 * a_s);
-      float cap_s = pc.mu_plane * (sh.sw[k] * n_total) * prm.dt;
-      float vsx = u[0] - u[2] * rsy;
-      float vsy = u[1] + u[2] * rsx;
-      float vs = sqrtf(vsx * vsx + vsy * vsy + 1e-16f);
-      float fac = mn(w_s, cap_s / vs);
-      float fx = fac * vsx, fy = fac * vsy;
-      s_fx = s_fx + (double)fx;
-      s_fy = s_fy + (double)fy;
-      s_m = s_m + (double)(rsx * fy - rsy * fx);
-      s_fac = s_fac + (double)fac;
-      s_f0 = s_f0 + (double)(fac * (-rsy));
-      s_f1 = s_f1 + (double)(fac * rsx);
-      s_f2 = s_f2 + (double)(fac * (rsx * rsx + rsy * rsy));
-    }
+    SupSums ss;
+    support_sums<G>(sh, pc, prm, L, S, sub, u, load, ss);
     float f_w = clampf(w_w * u[2], -cap_w, cap_w);
-    float g0 = pc.mass * (u[0] - uu[0]) + (float)s_fx;
-    float g1 = pc.mass * (u[1] - uu[1]) + (float)s_fy;
-    float g2 = pc.inertia * (u[2] - uu[2]) + f_w + (float)s_m;
-    float h00 = pc.mass + (float)s_fac;
-    float h11 = pc.mass + (float)s_fac;
-    float h02 = (float)s_f0, h12 = (float)s_f1;
+    float g0 = pc.mass * (u[0] - uu[0]) + ss.fx;
+    float g1 = pc.mass * (u[1] - uu[1]) + ss.fy;
+    float g2 = pc.inertia * (u[2] - uu[2]) + f_w + ss.m;
+    float h00 = pc.mass + ss.fac;
+    float h11 = pc.mass + ss.fac;
+    float h02 = ss.f0, h12 = ss.f1;
     float h22 = pc.inertia
-        + w_w * ((fabsf(w_w * u[2]) <= cap_w) ? 1.0f : 0.0f) + (float)s_f2;
+        + w_w * ((fabsf(w_w * u[2]) <= cap_w) ? 1.0f : 0.0f) + ss.f2;
     float l00i = rsq(h00);
     float l11i = rsq(h11);
     float l20 = h02 * l00i;
@@ -409,28 +470,31 @@ __device__ __forceinline__ void cheap_solve(const Shared& sh, const Pair& pc,
     float u1[3] = {u[0] + d0, u[1] + d1, u[2] + d2};
     float u2[3] = {u[0] + 0.5f * d0, u[1] + 0.5f * d1, u[2] + 0.5f * d2};
     const float* cand[3] = {u, u1, u2};
-    float e[3];
+    double es[3] = {0.0, 0.0, 0.0};
+    for (int k = sub; k < S; k += G) {
+      Sup g;
+      support_geo(sh, pc, L, k, g);
+      const float rsx = g.rsx, rsy = g.rsy, w_s = g.w_s;
+      float cap_s = pc.mu_plane * load(k) * prm.dt;
 #pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      const float* v = cand[q];
-      double es = 0.0;
-      for (int k = 0; k < S; ++k) {
-        float rsx = sh.sbx[k] * c - sh.sby[k] * s;
-        float rsy = sh.sbx[k] * s + sh.sby[k] * c;
-        float a_s = pc.inv_m + (rsx * rsx + rsy * rsy) * pc.inv_i * 0.5f;
-        float w_s = 1.0f / (pc.c_r2 * a_s);
-        float cap_s = pc.mu_plane * (sh.sw[k] * n_total) * prm.dt;
+      for (int q = 0; q < 3; ++q) {
+        const float* v = cand[q];
         float vsx = v[0] - v[2] * rsy;
         float vsy = v[1] + v[2] * rsx;
         float vs = sqrtf(vsx * vsx + vsy * vsy + 1e-16f);
         float qq = 0.5f * w_s * vs * vs;
         float lin = cap_s * vs - 0.5f * cap_s * cap_s / mx(w_s, 1e-12f);
-        es = es + (double)((w_s * vs <= cap_s) ? qq : lin);
+        es[q] = es[q] + (double)((w_s * vs <= cap_s) ? qq : lin);
       }
+    }
+    float e[3];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      const float* v = cand[q];
       float av = fabsf(v[2]);
       float qw = 0.5f * w_w * v[2] * v[2];
       float linw = cap_w * av - 0.5f * cap_w * cap_w / mx(w_w, 1e-12f);
-      float ec = (float)es + ((w_w * av <= cap_w) ? qw : linw);
+      float ec = group_sum<G>(es[q]) + ((w_w * av <= cap_w) ? qw : linw);
       float d0_ = v[0] - uu[0], d1_ = v[1] - uu[1], d2_ = v[2] - uu[2];
       e[q] = ec + 0.5f * (pc.mass * (d0_ * d0_ + d1_ * d1_)
                           + pc.inertia * (d2_ * d2_));
@@ -443,7 +507,9 @@ __device__ __forceinline__ void cheap_solve(const Shared& sh, const Pair& pc,
   }
 }
 
-__global__ void __launch_bounds__(kLane)
+template <int G>
+__global__ void __launch_bounds__(rollout::Layout<G>::kThreads,
+                                   rollout::Layout<G>::kMinBlocks)
 rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
                  const float* __restrict__ contour,   // (B, P, 2)
                  const float* __restrict__ support,   // (B, S, 4)
@@ -451,56 +517,76 @@ rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
                  const float* __restrict__ poses,     // (N, 3)
                  float* __restrict__ out,             // (8, B, N)
                  int B, int P, int S, int N, Rollout2DParams prm) {
+  using LO = rollout::Layout<G>;
+  constexpr int kThreads = LO::kThreads;
+  constexpr int kCluster = LO::kCluster;
   extern __shared__ float smem[];
   const int pair = blockIdx.y;
   const int tid = threadIdx.x;
   float* s_coef = smem;                       // 48
   float* s_scal = s_coef + 2 * kSeg * 4;      // 16
-  float* s_cbx = s_scal + kScal;              // P
+  float* s_pair = s_scal + kScal;             // kPairFloats
+  int* s_vote = reinterpret_cast<int*>(s_pair + kPairFloats);  // 2 * kCluster
+  float* s_lane = s_pair + kPairFloats + 2 * kCluster;   // per rollout
+  float* s_cbx = s_lane + LO::kRollouts * kLaneStride;   // P
   float* s_cby = s_cbx + P;                   // P
   float* s_sbx = s_cby + P;                   // S
   float* s_sby = s_sbx + S;                   // S
   float* s_sw = s_sby + S;                    // S
-  for (int k = tid; k < 2 * kSeg * 4; k += kLane)
+  // kHeld floats a point, ceil(P / G) points a lane, one column a thread
+  float* slab = s_sw + S + tid;
+  for (int k = tid; k < 2 * kSeg * 4; k += kThreads)
     s_coef[k] = coefs[(size_t)pair * 2 * kSeg * 4 + k];
   if (tid < kScal) s_scal[tid] = scalars[(size_t)pair * kScal + tid];
   __syncthreads();
   const float com_bx = s_scal[3], com_by = s_scal[4];
-  for (int k = tid; k < P; k += kLane) {
+  for (int k = tid; k < P; k += kThreads) {
     s_cbx[k] = contour[((size_t)pair * P + k) * 2 + 0] - com_bx;
     s_cby[k] = contour[((size_t)pair * P + k) * 2 + 1] - com_by;
   }
-  for (int k = tid; k < S; k += kLane) {
+  for (int k = tid; k < S; k += kThreads) {
     s_sbx[k] = support[((size_t)pair * S + k) * 4 + 0] - com_bx;
     s_sby[k] = support[((size_t)pair * S + k) * 4 + 1] - com_by;
     s_sw[k] = support[((size_t)pair * S + k) * 4 + 2];
   }
+  if (tid == 0) {
+    Pair& w = *reinterpret_cast<Pair*>(s_pair);
+    w.mass = s_scal[0];
+    w.inertia = s_scal[1];
+    w.fmass_l = s_scal[2];
+    w.com_bx = com_bx;
+    w.com_by = com_by;
+    w.fmass_r = s_scal[5];
+    w.mu_plane = s_scal[6];
+    w.mu_finger = s_scal[7];
+    w.mu_torsion = s_scal[8];
+    w.k_con = s_scal[9];
+    w.b_con = s_scal[10];
+    w.unload = s_scal[11];
+    w.rough = s_scal[12];
+    w.c_r2 = s_scal[13];
+    w.broad_a = s_scal[14];
+    w.broad_b = s_scal[15];
+    w.inv_m = 1.0f / w.mass;
+    w.inv_i = 1.0f / w.inertia;
+    w.inv_fml = 1.0f / w.fmass_l;
+    w.inv_fmr = 1.0f / w.fmass_r;
+    w.w_w = w.inertia / w.c_r2;
+    w.mg_dt = w.mass * prm.gravity * prm.dt;
+  }
   __syncthreads();
 
   const Shared sh{s_coef, s_cbx, s_cby, s_sbx, s_sby, s_sw};
-  Pair pc;
-  pc.mass = s_scal[0];
-  pc.inertia = s_scal[1];
-  pc.fmass_l = s_scal[2];
-  pc.com_bx = com_bx;
-  pc.com_by = com_by;
-  pc.fmass_r = s_scal[5];
-  pc.mu_plane = s_scal[6];
-  pc.mu_finger = s_scal[7];
-  pc.mu_torsion = s_scal[8];
-  pc.k_con = s_scal[9];
-  pc.b_con = s_scal[10];
-  pc.unload = s_scal[11];
-  pc.rough = s_scal[12];
-  pc.c_r2 = s_scal[13];
-  pc.broad_a = s_scal[14];
-  pc.broad_b = s_scal[15];
-  pc.inv_m = 1.0f / pc.mass;
-  pc.inv_i = 1.0f / pc.inertia;
-  pc.inv_fml = 1.0f / pc.fmass_l;
-  pc.inv_fmr = 1.0f / pc.fmass_r;
+  const Pair& pc = *reinterpret_cast<const Pair*>(s_pair);
+  rollout::GroupVote<kCluster> vote;
+  vote.init(s_vote);
 
-  const int j = blockIdx.x * kLane + tid;     // pose index (N % 128 == 0)
+  // thread -> (rollout of the pose group, lane of the rollout)
+  const int rank = (int)rollout::cg::this_cluster().block_rank();
+  const int t_grp = rank * kThreads + tid;
+  const int sub = t_grp % G;
+  Lane& L = *reinterpret_cast<Lane*>(s_lane + (tid / G) * kLaneStride);
+  const int j = (blockIdx.x / kCluster) * kLane + t_grp / G;   // pose index
   const float pose_x = poses[(size_t)j * 3 + 0];
   const float pose_y = poses[(size_t)j * 3 + 1];
   const float theta0 = poses[(size_t)j * 3 + 2];
@@ -513,7 +599,6 @@ rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
   float ql = 0.f, qr = 0.f, qdl = 0.f, qdr = 0.f;
   float cnt_f = 0.f, cnt_c = 0.f;
   float scx = com_x, scy = com_y, sth = theta0;
-  const float d_imp = prm.impedance;
   const float dt = prm.dt;
 
   for (int i = 0; i < prm.steps; ++i) {
@@ -523,17 +608,18 @@ rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
       ql = 0.f; qr = 0.f; qdl = 0.f; qdr = 0.f;
       vx = 0.f; vy = 0.f; om = 0.f; vz = 0.f;
     }
-    // ---- settled-travel gate (block max of |v|, block-any reachability)
+    // ---- settled-travel gate (group max of |v|, group-any reachability):
+    // two bits that do not depend on each other, one vote
     float mot = mx(mx(fabsf(vx), fabsf(vy)), mx(fabsf(om), fabsf(vz)));
-    const bool unsettled = __syncthreads_or(!(mot < prm.eps_settled));
     float f_l = prm.kp * (prm.ctrl_l - ql) - prm.damping * qdl;
     float f_r = prm.kp * (prm.ctrl_r - qr) - prm.damping * qdr;
     float ql_n = ql + dt * (qdl + dt * f_l * pc.inv_fml);
     float qr_n = qr + dt * (qdr + dt * f_r * pc.inv_fmr);
     bool maybe = (cy - prm.marg <= pc.broad_a + mx(ql, ql_n))
         || (cy + prm.marg >= pc.broad_b + mn(qr, qr_n));
-    const bool reach = __syncthreads_or(maybe);
-    const bool travel = !unsettled && !reach && !is_rg;
+    // bit 0: some lane unsettled; bit 1: some lane can reach a finger
+    const int gate = vote.any2(!(mot < prm.eps_settled), maybe);
+    const bool travel = gate == 0 && !is_rg;
 
     if (travel) {
       // only the finger servos advance
@@ -542,24 +628,30 @@ rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
       ql = ql + dt * qdl;
       qr = qr + dt * qdr;
     } else {
-      const float c = cosf(th), s = sinf(th);
       const float depth_z = prm.plane_z - zb;
       const float n_total =
           pc.mass * mx(prm.k_plane * depth_z - prm.b_plane * vz, 0.0f);
-      const float w_w = pc.inertia / pc.c_r2;
-      const float mg_dt = pc.mass * prm.gravity * dt;
+      // the rollout's lanes are done with the last step's Lane
+      __syncwarp();
+      if (sub == 0) {
+        L.c = cosf(th); L.s = sinf(th);
+        L.cx = cx; L.cy = cy; L.ql = ql; L.qr = qr;
+        L.vx = vx; L.vy = vy; L.om = om; L.qdl = qdl; L.qdr = qdr;
+        L.n_total = n_total;
+        L.uu[0] = vx; L.uu[1] = vy; L.uu[2] = om;
+        L.uu[3] = qdl + dt * f_l * pc.inv_fml;
+        L.uu[4] = qdr + dt * f_r * pc.inv_fmr;
+      }
+      __syncwarp();
       vz = vz + dt * (-prm.gravity + n_total * pc.inv_m);
-      float uu[5] = {vx, vy, om, qdl + dt * f_l * pc.inv_fml,
-                     qdr + dt * f_r * pc.inv_fmr};
-      float u[5] = {uu[0], uu[1], uu[2], uu[3], uu[4]};
+      float u[5] = {L.uu[0], L.uu[1], L.uu[2], L.uu[3], L.uu[4]};
       bool near = (cy <= pc.broad_a + ql) || (cy >= pc.broad_b + qr);
-      const bool any_f = __syncthreads_or(near);
+      const bool any_f = vote.any(near);
       if (any_f) {
-        full_solve(sh, pc, prm, P, S, c, s, cx, cy, ql, qr, vx, vy, om,
-                   qdl, qdr, n_total, w_w, mg_dt, d_imp, uu, u);
+        full_solve<G>(sh, pc, prm, L, P, S, sub, slab, u);
         cnt_f = cnt_f + 1.0f;
       } else {
-        cheap_solve(sh, pc, prm, S, c, s, n_total, w_w, uu, u);
+        cheap_solve<G>(sh, pc, prm, L, S, sub, u);
         cnt_c = cnt_c + 1.0f;
       }
       vx = u[0]; vy = u[1]; om = u[2]; qdl = u[3]; qdr = u[4];
@@ -574,9 +666,11 @@ rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
       scx = cx; scy = cy; sth = th;
     }
   }
+  vote.finish();
   if (prm.snapshot_step <= 0 || prm.snapshot_step >= prm.steps) {
     scx = cx; scy = cy; sth = th;
   }
+  if (sub != 0) return;   // one lane of the rollout writes it out
 
   const float two_pi = 6.28318530717958647692f;   // float32(2 pi)
   float d_theta = sth - theta0;
@@ -604,15 +698,26 @@ rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
 
 }  // namespace
 
+// `plan` (5 ints, may be null) receives the rollout::Plan of the launch.
+// Nothing is launched, and an error comes back, when P needs more shared
+// memory than a block may have or the card cannot hold one cluster
+// (rollout::launch_clusters).
 extern "C" int rollout2d_launch(const float* coefs, const float* contour,
                                 const float* support, const float* scalars,
                                 const float* poses, float* out, int B, int P,
-                                int S, int N, Rollout2DParams prm,
+                                int S, int N, Rollout2DParams prm, int* plan,
                                 void* stream) {
-  if (B <= 0 || N <= 0 || N % kLane != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (2 * kSeg * 4 + kScal + 2 * P + 3 * S);
-  dim3 grid(N / kLane, B);
-  rollout2d_kernel<<<grid, kLane, smem, (cudaStream_t)stream>>>(
-      coefs, contour, support, scalars, poses, out, B, P, S, N, prm);
-  return (int)cudaGetLastError();
+  constexpr int G = kThreadsPerRollout;
+  using LO = rollout::Layout<G>;
+  if (B <= 0 || P <= 0 || S < 0 || N <= 0 || N % kLane != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * (2 * kSeg * 4 + kScal + kPairFloats +
+                       LO::kRollouts * kLaneStride + 2 * P + 3 * S +
+                       kHeld * LO::kThreads * (size_t)((P + G - 1) / G)) +
+      sizeof(int) * 2 * LO::kCluster;
+  return rollout::launch_clusters<LO>(
+      rollout2d_kernel<G>, dim3((N / kLane) * LO::kCluster, B), smem,
+      (cudaStream_t)stream, reinterpret_cast<rollout::Plan*>(plan), G, coefs,
+      contour, support, scalars, poses, out, B, P, S, N, prm);
 }

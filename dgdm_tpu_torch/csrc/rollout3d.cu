@@ -1,45 +1,73 @@
 // 3D squeeze rollouts (kernel K2) for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_rollout3d_kernel` of dgdm_tpu/sim/pallas3d.py on
-// its Newton path (the package's default solver). One CUDA block of 128
-// threads runs one (pair, 128-pose block) — the Pallas grid cell — for all
-// steps; each thread carries one rollout's 6-DOF state (position, quaternion,
-// velocities, the two jaws) in registers. The pair's fitted finger surfaces
-// (2 x 24 cells x 12 coefficients) and its body-frame surface points (P x 3,
-// P = 256 on the verification and datagen paths), ~5 KB, sit in shared
-// memory. The block-uniform branches of the Pallas kernel keep their
-// per-block granularity as __syncthreads_or votes: the settled-travel gate
-// (block max of |v|, |omega| plus the broad-phase reachability test with the
-// jaws' next position) and the full-vs-cheap solve gate. Padded lanes vote
+// its Newton path (the package's default solver). The Pallas grid cell, one
+// (pair, 128-pose group), is one thread block cluster here: G threads of a
+// warp carry one rollout and share its surface points (lane r takes
+// p = r, r + G, ...), so a group is 128 * G threads in
+// Layout<G>::kCluster blocks (csrc/rollout_common.cuh). Every lane of a
+// rollout holds the rollout's 6-DOF state (position, quaternion, velocities,
+// the two jaws) and runs the 8x8 / 6x6 Cholesky solves and the line search
+// redundantly; only the point sums cross lanes (float64 partial sums, an xor
+// butterfly of shuffles, one rounding to float32). The pair's fitted finger
+// surfaces (2 x 24 cells x 12 coefficients), its body-frame surface points
+// (P x 3, P = 256 on the verification and datagen paths) and its constants,
+// ~5.5 KB, sit in each block's shared memory. The group-uniform branches of
+// the Pallas kernel keep their 128-pose granularity as GroupVote votes over
+// the cluster: the settled-travel gate (group max of |v|, |omega| and the
+// broad-phase reachability test with the jaws' next position, two bits
+// behind one barrier) and the full-vs-cheap solve gate. Padded lanes vote
 // too, as in the Pallas kernel.
+//
+// G is a template parameter of the kernel body and K2 is built for G = 32:
+// 512 threads a block, clusters of 8, at most 128 registers a thread and 0
+// bytes of spills (csrc/rollout_common.cuh says what was measured against
+// it).
 //
 // Bound: operations, not bytes. A call reads ~5 KB per pair plus 12 bytes per
 // pose and writes 48 bytes per pose; a full-solve step costs a few thousand
-// flops per surface point. The per-point contact geometry (two bivariate
-// Horner surface evaluations, normals, contact frames, effective masses) is
-// recomputed in each of the 4 passes over the points of a Newton iteration
-// instead of being held per point: each pass keeps at most 30 float64 sums
-// live, so nothing of a step touches device memory.
+// flops per surface point, most of them the point's contact geometry (two
+// bivariate Horner surface evaluations, normals, contact frames, effective
+// masses), which does not change during a solve. So each lane computes its
+// points' geometry once per solve into a slab of shared memory (12 floats a
+// point, 8 points a lane at P = 256: 192 KB a block, so one block an SM) and
+// the four passes over the points of each Newton iteration read it back.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W against a body that
+// recomputed the geometry in every pass (since removed): 60 ms against 81 ms
+// at 16 pairs x 128 poses x 2,400 steps, 656 against 909 ms at 8 x 9,088 x
+// 800. The slab bounds the point count: P <= 256 fits a block's shared
+// memory on the H100, which is what every caller passes; more is refused by
+// the launcher.
+//
+// What binds are registers: 128 a thread, so that an SM holds 16 warps. Each
+// pass keeps at most 26 float64 sums live (the eight finger-column sums are
+// spread over passes A, B and C for that) and
+// parks the rounded sums in shared memory (Lane::park) until the 8x8 system
+// is assembled; the pair's constants (Pair), the step's fixed quantities and
+// the rollout's state that a solve does not touch (Lane) wait in shared
+// memory too, and the lane's index within its rollout is read from %laneid
+// where it is used. Nothing of a step touches device memory.
 //
 // Numerics: float32 state and elementwise physics, compiled without fast
 // math and with -fmad=false, so that each expression rounds like the plain
 // PyTorch version (dgdm_tpu_torch/sim/rollout3d_ref.py), which keeps the
 // Pallas operand order. Every sum over surface points accumulates in float64
-// and rounds once to float32 (the plain version does the same), so it does
-// not depend on the summation order. rsqrt is 1/sqrtf; max/min propagate NaN
-// like torch.maximum/minimum. The float32 constants the Pallas kernel folds
-// from scalars arrive folded in Rollout3DParams (rollout3d_ref.constants).
+// and rounds once to float32 (the plain version does the same; with
+// sum_group = G it also adds in this kernel's order). rsqrt is 1/sqrtf;
+// max/min propagate NaN like torch.maximum/minimum. The float32 constants
+// the Pallas kernel folds from scalars arrive folded in Rollout3DParams
+// (rollout3d_ref.constants).
 //
 // C interface (bound with ctypes by dgdm_tpu_torch/sim/rollout3d.py): the
 // launch runs on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "rollout_common.cuh"
 
 namespace {
 
-constexpr int kLane = 128;
+constexpr int kLane = rollout::kGroup;
+constexpr int kThreadsPerRollout = 32;   // the layout K2 is built for
 constexpr int kNSeg = 12;    // x cells of the fitted surface
 constexpr int kNzSeg = 2;    // z cells
 constexpr int kTotSeg = kNSeg * kNzSeg;
@@ -59,17 +87,15 @@ struct Rollout3DParams {
 
 namespace {
 
-__device__ __forceinline__ float mx(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ float mn(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return mn(mx(x, lo), hi);
-}
-__device__ __forceinline__ float rsq(float x) { return 1.0f / sqrtf(x); }
-__device__ __forceinline__ float step01(bool c) { return c ? 1.0f : 0.0f; }
+using rollout::clampf;
+using rollout::group_max;
+using rollout::group_min;
+using rollout::group_sum;
+using rollout::lane_in_rollout;
+using rollout::mn;
+using rollout::mx;
+using rollout::rsq;
+using rollout::step01;
 
 // Huber-like energy of one soft row (pallas3d.py:488-495), per point.
 __device__ __forceinline__ float hub(float vn, float vt2, float w, float cap,
@@ -83,7 +109,8 @@ __device__ __forceinline__ float hub(float vn, float vt2, float w, float cap,
   return e_n + e_t;
 }
 
-// Per-pair constants, read once from shared memory into registers.
+// Per-pair constants, filled once per block in shared memory and read
+// from there where they are used (registers go to the float64 sums).
 struct Pair {
   float mass, fmass_l, fmass_r, com_x, com_y, com_z;
   float i00, i11, i22, i01, i02, i12;       // body inverse inertia
@@ -91,6 +118,7 @@ struct Pair {
   float mu_plane, mu_finger, rough, unload, c_r, fmax_l, fmin_r, restitution;
   float inv_m, inv_fml, inv_fmr, tgt_f_v, tgt_f_d, mg_dt;
 };
+constexpr int kPairFloats = sizeof(Pair) / sizeof(float);
 
 struct Shared {
   const float* coef;   // (2, 24, 4, 3) fitted surface polynomials (l, r)
@@ -99,32 +127,47 @@ struct Shared {
   const float* pbz;
 };
 
-// Lane quantities of one normal step, fixed during its solve.
+// Quantities of one rollout's normal step that stay fixed during its solve,
+// and the solve's unconstrained velocity uu. One per rollout in shared
+// memory: lane 0 of the rollout fills it, all its lanes read it (one
+// broadcast a warp), and the registers stay with the float64 sums. `park`
+// holds the rounded sums of the full solve's passes A and B (Hessian rows
+// 0-2, finger columns, rows 3-7, gradient terms) while the later passes run:
+// held in registers they would push the float64 sums of those passes out.
 struct Lane {
   float r00, r01, r02, r10, r11, r12, r20, r21, r22;
   float w00, w01, w02, w11, w12, w22;        // world inverse inertia
   float iw00, iw01, iw02, iw11, iw12, iw22;  // world inertia
   float px, py, pz, vx, vy, vz, ox, oy, oz, ql, qr, qdl, qdr;
+  float uu[8];
+  float park[21 + 8 + 14 + 9 + 24];
+  // the rollout's state that a solve does not touch (orientation, snapshot,
+  // wy span) waits here while the solve runs
+  float keep[12];
+  int pose;   // index of the rollout's pose
 };
+// odd stride in floats: conflict-free when every thread reads its own
+constexpr int kLaneStride = (sizeof(Lane) / sizeof(float)) | 1;
 
-__device__ __forceinline__ void sandwich(const Lane& L, float m00, float m11,
+// R M R^T of a symmetric M (upper triangle m) -> its 6 upper entries.
+__device__ __forceinline__ void sandwich(const float* r, float m00, float m11,
                                          float m22, float m01, float m02,
                                          float m12, float* o) {
-  float a00 = L.r00 * m00 + L.r01 * m01 + L.r02 * m02;
-  float a01 = L.r00 * m01 + L.r01 * m11 + L.r02 * m12;
-  float a02 = L.r00 * m02 + L.r01 * m12 + L.r02 * m22;
-  float a10 = L.r10 * m00 + L.r11 * m01 + L.r12 * m02;
-  float a11 = L.r10 * m01 + L.r11 * m11 + L.r12 * m12;
-  float a12 = L.r10 * m02 + L.r11 * m12 + L.r12 * m22;
-  float a20 = L.r20 * m00 + L.r21 * m01 + L.r22 * m02;
-  float a21 = L.r20 * m01 + L.r21 * m11 + L.r22 * m12;
-  float a22 = L.r20 * m02 + L.r21 * m12 + L.r22 * m22;
-  o[0] = a00 * L.r00 + a01 * L.r01 + a02 * L.r02;
-  o[1] = a00 * L.r10 + a01 * L.r11 + a02 * L.r12;
-  o[2] = a00 * L.r20 + a01 * L.r21 + a02 * L.r22;
-  o[3] = a10 * L.r10 + a11 * L.r11 + a12 * L.r12;
-  o[4] = a10 * L.r20 + a11 * L.r21 + a12 * L.r22;
-  o[5] = a20 * L.r20 + a21 * L.r21 + a22 * L.r22;
+  float a00 = r[0] * m00 + r[1] * m01 + r[2] * m02;
+  float a01 = r[0] * m01 + r[1] * m11 + r[2] * m12;
+  float a02 = r[0] * m02 + r[1] * m12 + r[2] * m22;
+  float a10 = r[3] * m00 + r[4] * m01 + r[5] * m02;
+  float a11 = r[3] * m01 + r[4] * m11 + r[5] * m12;
+  float a12 = r[3] * m02 + r[4] * m12 + r[5] * m22;
+  float a20 = r[6] * m00 + r[7] * m01 + r[8] * m02;
+  float a21 = r[6] * m01 + r[7] * m11 + r[8] * m12;
+  float a22 = r[6] * m02 + r[7] * m12 + r[8] * m22;
+  o[0] = a00 * r[0] + a01 * r[1] + a02 * r[2];
+  o[1] = a00 * r[3] + a01 * r[4] + a02 * r[5];
+  o[2] = a00 * r[6] + a01 * r[7] + a02 * r[8];
+  o[3] = a10 * r[3] + a11 * r[4] + a12 * r[5];
+  o[4] = a10 * r[6] + a11 * r[7] + a12 * r[8];
+  o[5] = a20 * r[6] + a21 * r[7] + a22 * r[8];
 }
 
 // Plane-row quantities of one point (the cheap solve needs only these).
@@ -132,9 +175,11 @@ struct PGeo {
   float rx, ry, rz, w_np, tgt_pn;
 };
 
-__device__ __forceinline__ void plane_geo(const Shared& sh, const Pair& pc,
+__device__ __forceinline__ void plane_geo(const Shared& sh,
+                                          const Pair& pc,
                                           const Rollout3DParams& prm,
-                                          const Lane& L, int p, PGeo& g,
+                                          const Lane& L, int p,
+                                          PGeo& g,
                                           float& wy, float& wx, float& wz) {
   float bx = sh.pbx[p], by = sh.pby[p], bz = sh.pbz[p];
   g.rx = L.r00 * bx + L.r01 * by + L.r02 * bz;
@@ -187,9 +232,11 @@ __device__ __forceinline__ void surface_eval(const float* c, float t, float s,
   }
 }
 
-__device__ __forceinline__ void full_geo(const Shared& sh, const Pair& pc,
+__device__ __forceinline__ void full_geo(const Shared& sh,
+                                         const Pair& pc,
                                          const Rollout3DParams& prm,
-                                         const Lane& L, int p, FGeo& g) {
+                                         const Lane& L, int p,
+                                         FGeo& g) {
   PGeo pg;
   float wx, wy, wz;
   plane_geo(sh, pc, prm, L, p, pg, wy, wx, wz);
@@ -248,6 +295,36 @@ __device__ __forceinline__ void full_geo(const Shared& sh, const Pair& pc,
   g.cfx = cfx; g.cfy = cfy; g.cfz = cfz;
   g.sl = step01(is_l);
   g.sr = 1.0f - g.sl;
+}
+
+// A lane's contact geometry, held across the passes of a full solve: 12 of FGeo's 16 floats per point in
+// the thread's own column of a shared-memory slab ((point, field) rows of T
+// threads, so a warp's accesses fall in distinct banks); the other four are
+// recomputed with the expressions full_geo uses.
+constexpr int kHeld = 12;
+
+template <int T>
+__device__ __forceinline__ void geo_store(float* slab, int k, const FGeo& g) {
+  float* q = slab + k * kHeld * T;
+  q[0 * T] = g.rx; q[1 * T] = g.ry; q[2 * T] = g.rz;
+  q[3 * T] = g.w_np; q[4 * T] = g.tgt_pn;
+  q[5 * T] = g.nfx; q[6 * T] = g.nfy; q[7 * T] = g.nfz;
+  q[8 * T] = g.sl; q[9 * T] = g.w_nf; q[10 * T] = g.tgt_fn;
+  q[11 * T] = g.rough_capn;
+}
+
+template <int T>
+__device__ __forceinline__ void geo_load(const float* slab, int k, FGeo& g) {
+  const float* q = slab + k * kHeld * T;
+  g.rx = q[0 * T]; g.ry = q[1 * T]; g.rz = q[2 * T];
+  g.w_np = q[3 * T]; g.tgt_pn = q[4 * T];
+  g.nfx = q[5 * T]; g.nfy = q[6 * T]; g.nfz = q[7 * T];
+  g.sl = q[8 * T]; g.w_nf = q[9 * T]; g.tgt_fn = q[10 * T];
+  g.rough_capn = q[11 * T];
+  g.sr = 1.0f - g.sl;
+  g.cfx = g.ry * g.nfz - g.rz * g.nfy;
+  g.cfy = g.rz * g.nfx - g.rx * g.nfz;
+  g.cfz = g.rx * g.nfy - g.ry * g.nfx;
 }
 
 // Contact velocities and forces of one point at the iterate u.
@@ -315,236 +392,280 @@ __device__ __forceinline__ float e_quad(const Pair& pc, const Lane& L,
                  pc.fmass_l * (d[6] * d[6]) + pc.fmass_r * (d[7] * d[7]));
 }
 
-// Unrolled Cholesky solve of H d = -grad over the upper triangle of H.
-template <int N>
-__device__ __forceinline__ void cholesky_solve(const float (&h)[N][N],
-                                               const float* grad, float* dv) {
-  float L[N][N], Ld[N], yv[N];
-#pragma unroll
-  for (int a = 0; a < N; ++a) {
-    float s = h[a][a];
-#pragma unroll
-    for (int k = 0; k < a; ++k) s = s - L[a][k] * L[a][k];
-    float dinv = rsq(mx(s, 1e-12f));
-    Ld[a] = dinv;
-#pragma unroll
-    for (int b = a + 1; b < N; ++b) {
-      float s2 = h[a][b];
-#pragma unroll
-      for (int k = 0; k < a; ++k) s2 = s2 - L[b][k] * L[a][k];
-      L[b][a] = s2 * dinv;
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < N; ++a) {
-    float s = -grad[a];
-#pragma unroll
-    for (int k = 0; k < a; ++k) s = s - L[a][k] * yv[k];
-    yv[a] = s * Ld[a];
-  }
-#pragma unroll
-  for (int a = N - 1; a >= 0; --a) {
-    float s = yv[a];
-#pragma unroll
-    for (int k = a + 1; k < N; ++k) s = s - L[k][a] * dv[k];
-    dv[a] = s * Ld[a];
-  }
-}
-
-__device__ __forceinline__ float f32(double x) { return (float)x; }
-
 // Coupled semi-smooth Newton on the 8-DOF soft-constraint energy
 // (pallas3d.py:497-737): u = (vx, vy, vz, ox, oy, oz, qdl, qdr), in/out.
+// Lane r of the rollout's G lanes takes the points r, r + G, ...
+// The lane's geometry is computed once, ahead of the passes, into `slab`
+// (the thread's column), and the passes read it back.
+template <int G>
 __device__ void full_solve(const Shared& sh, const Pair& pc,
-                           const Rollout3DParams& prm, const Lane& L, int P,
-                           const float* uu, float* u) {
+                           const Rollout3DParams& prm, Lane& L, int P,
+                           float* slab, const float* uu, float* u) {
+  constexpr int kThreads = rollout::Layout<G>::kThreads;
+  for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
+    FGeo g;
+    full_geo(sh, pc, prm, L, p, g);
+    geo_store<kThreads>(slab, k, g);
+  }
+  float* park_a = L.park;            // 21 Hessian sums of rows 0-2
+  float* park_fc = park_a + 21;      // 8 finger-column sums
+  float* park_b = park_fc + 8;       // 14 Hessian sums of rows 3-7
+  float* park_gs = park_b + 14;      // 9 gradient sums
+  float* park_c = park_gs + 9;       // 5 + 6 + 13 sums of pass C
   for (int it = 0; it < prm.newton_iters; ++it) {
-    // ---- pass A: grip load, Hessian rows 0-2, finger columns ----
-    double s_lam = 0.0;
-    double hA[21];
-    double fc[8];
+    // the rollout's lanes have read the last iteration's parked sums
+    __syncwarp();
+    // ---- pass A: grip load, Hessian rows 0-2, finger columns 0-3 (the
+    // eight finger-column sums are spread over passes A, B and C so that no
+    // pass holds more than 26 float64 sums) ----
+    float grip;
+    {
+      double s_lam = 0.0;
+      double hA[21];
+      double dfc[4];
 #pragma unroll
-    for (int q = 0; q < 21; ++q) hA[q] = 0.0;
+      for (int q = 0; q < 21; ++q) hA[q] = 0.0;
 #pragma unroll
-    for (int q = 0; q < 8; ++q) fc[q] = 0.0;
-    for (int p = 0; p < P; ++p) {
-      FGeo g;
-      full_geo(sh, pc, prm, L, p, g);
-      Terms t;
-      terms(g, u, t);
-      s_lam = s_lam + (double)t.lamf;
-      float fac_f = fac_finger(pc, g, t);
-      float cn_f = g.w_nf * step01(t.resf > 0.0f) - fac_f;
-      float jf[8] = {g.nfx, g.nfy, g.nfz, g.cfx, g.cfy, g.cfz,
-                     -g.nfy * g.sl, -g.nfy * g.sr};
-      int q = 0;
+      for (int q = 0; q < 4; ++q) dfc[q] = 0.0;
+      for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
+        FGeo g;
+        geo_load<kThreads>(slab, k, g);
+        Terms t;
+        terms(g, u, t);
+        s_lam = s_lam + (double)t.lamf;
+        float fac_f = fac_finger(pc, g, t);
+        float cn_f = g.w_nf * step01(t.resf > 0.0f) - fac_f;
+        float jf[8] = {g.nfx, g.nfy, g.nfz, g.cfx, g.cfy, g.cfz,
+                       -g.nfy * g.sl, -g.nfy * g.sr};
+        int q = 0;
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        float yf = cn_f * jf[a];
+        for (int a = 0; a < 3; ++a) {
+          float yf = cn_f * jf[a];
 #pragma unroll
-        for (int b = a; b < 8; ++b) hA[q++] += (double)(yf * jf[b]);
+          for (int b = a; b < 8; ++b) hA[q++] += (double)(yf * jf[b]);
+        }
+        dfc[0] += (double)(fac_f * (-g.sl));
+        dfc[1] += (double)(fac_f * (-g.sr));
+        dfc[2] += (double)(fac_f * g.sl * g.rz);
+        dfc[3] += (double)(fac_f * g.sl * (-g.rx));
       }
-      fc[0] += (double)(fac_f * (-g.sl));
-      fc[1] += (double)(fac_f * (-g.sr));
-      fc[2] += (double)(fac_f * g.sl * g.rz);
-      fc[3] += (double)(fac_f * g.sl * (-g.rx));
-      fc[4] += (double)(fac_f * g.sr * g.rz);
-      fc[5] += (double)(fac_f * g.sr * (-g.rx));
-      fc[6] += (double)(fac_f * g.sl);
-      fc[7] += (double)(fac_f * g.sr);
+      grip = group_sum<G>(s_lam) / pc.mg_dt;
+#pragma unroll
+      for (int q = 0; q < 21; ++q) {
+        float v = group_sum<G>(hA[q]);
+        if (lane_in_rollout<G>() == 0) park_a[q] = v;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float v = group_sum<G>(dfc[k]);
+        if (lane_in_rollout<G>() == 0) park_fc[k] = v;
+      }
     }
-    const float grip = f32(s_lam) / pc.mg_dt;
     const float scale_p = 1.0f / (1.0f + pc.unload * grip);
     const float capp_scale = pc.mu_plane * scale_p;
 
     // ---- pass B: Hessian rows 3-7, gradient terms without the plane cap --
-    double hB[14];
-    double gs[9];
+    {
+      double hB[14];
+      double dgs[9];
+      double dfc[3];
 #pragma unroll
-    for (int q = 0; q < 14; ++q) hB[q] = 0.0;
+      for (int q = 0; q < 14; ++q) hB[q] = 0.0;
 #pragma unroll
-    for (int q = 0; q < 9; ++q) gs[q] = 0.0;
-    for (int p = 0; p < P; ++p) {
-      FGeo g;
-      full_geo(sh, pc, prm, L, p, g);
-      Terms t;
-      terms(g, u, t);
-      float fac_f = fac_finger(pc, g, t);
-      float cn_f = g.w_nf * step01(t.resf > 0.0f) - fac_f;
-      float jf[8] = {g.nfx, g.nfy, g.nfz, g.cfx, g.cfy, g.cfz,
-                     -g.nfy * g.sl, -g.nfy * g.sr};
-      int q = 0;
+      for (int q = 0; q < 9; ++q) dgs[q] = 0.0;
 #pragma unroll
-      for (int a = 3; a < 8; ++a) {
-        float yf = cn_f * jf[a];
+      for (int q = 0; q < 3; ++q) dfc[q] = 0.0;
+      for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
+        FGeo g;
+        geo_load<kThreads>(slab, k, g);
+        Terms t;
+        terms(g, u, t);
+        float fac_f = fac_finger(pc, g, t);
+        float cn_f = g.w_nf * step01(t.resf > 0.0f) - fac_f;
+        float jf[8] = {g.nfx, g.nfy, g.nfz, g.cfx, g.cfy, g.cfz,
+                       -g.nfy * g.sl, -g.nfy * g.sr};
+        int q = 0;
 #pragma unroll
-        for (int b = a; b < 8; ++b) {
-          if (a == 6 && b == 7) continue;
-          hB[q++] += (double)(yf * jf[b]);
+        for (int a = 3; a < 8; ++a) {
+          float yf = cn_f * jf[a];
+#pragma unroll
+          for (int b = a; b < 8; ++b) {
+            if (a == 6 && b == 7) continue;
+            hB[q++] += (double)(yf * jf[b]);
+          }
         }
+        dgs[0] += (double)(t.lamf * g.nfx);
+        dgs[1] += (double)(t.lamf * g.nfy);
+        dgs[2] += (double)(t.lamf * g.nfz + t.lamp);
+        dgs[3] += (double)(fac_f * t.vtfz);
+        dgs[4] += (double)(t.lamf * g.cfx + t.lamp * g.ry);
+        dgs[5] += (double)(t.lamf * g.cfy - t.lamp * g.rx);
+        dgs[6] += (double)(t.lamf * g.cfz);
+        dgs[7] += (double)(g.sl * (t.lamf * g.nfy - fac_f * t.vtfy));
+        dgs[8] += (double)(g.sr * (t.lamf * g.nfy - fac_f * t.vtfy));
+        dfc[0] += (double)(fac_f * g.sr * g.rz);
+        dfc[1] += (double)(fac_f * g.sr * (-g.rx));
+        dfc[2] += (double)(fac_f * g.sl);
       }
-      gs[0] += (double)(t.lamf * g.nfx);
-      gs[1] += (double)(t.lamf * g.nfy);
-      gs[2] += (double)(t.lamf * g.nfz + t.lamp);
-      gs[3] += (double)(fac_f * t.vtfz);
-      gs[4] += (double)(t.lamf * g.cfx + t.lamp * g.ry);
-      gs[5] += (double)(t.lamf * g.cfy - t.lamp * g.rx);
-      gs[6] += (double)(t.lamf * g.cfz);
-      gs[7] += (double)(g.sl * (t.lamf * g.nfy - fac_f * t.vtfy));
-      gs[8] += (double)(g.sr * (t.lamf * g.nfy - fac_f * t.vtfy));
+#pragma unroll
+      for (int q = 0; q < 14; ++q) {
+        float v = group_sum<G>(hB[q]);
+        if (lane_in_rollout<G>() == 0) park_b[q] = v;
+      }
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        float v = group_sum<G>(dgs[k]);
+        if (lane_in_rollout<G>() == 0) park_gs[k] = v;
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        float v = group_sum<G>(dfc[k]);
+        if (lane_in_rollout<G>() == 0) park_fc[4 + k] = v;
+      }
     }
 
     // ---- pass C: friction terms with the plane cap, plane Hessian ----
-    double gc[5], hp[6], hf[13];
+    {
+      double dgc[5], dhp[6], dhf[13];
+      double dfc7 = 0.0;
 #pragma unroll
-    for (int q = 0; q < 5; ++q) gc[q] = 0.0;
+      for (int q = 0; q < 5; ++q) dgc[q] = 0.0;
 #pragma unroll
-    for (int q = 0; q < 6; ++q) hp[q] = 0.0;
+      for (int q = 0; q < 6; ++q) dhp[q] = 0.0;
 #pragma unroll
-    for (int q = 0; q < 13; ++q) hf[q] = 0.0;
-    for (int p = 0; p < P; ++p) {
-      FGeo g;
-      full_geo(sh, pc, prm, L, p, g);
-      Terms t;
-      terms(g, u, t);
-      const float rx = g.rx, ry = g.ry, rz = g.rz;
-      float fac_f = fac_finger(pc, g, t);
-      float fac_p = fac_plane(g, t, capp_scale);
-      float vtpx = t.fx, vtpy = t.pvy;
-      gc[0] += (double)(fac_f * t.vtfx + fac_p * vtpx);
-      gc[1] += (double)(fac_f * t.vtfy + fac_p * vtpy);
-      gc[2] += (double)(fac_f * (ry * t.vtfz - rz * t.vtfy) +
-                        fac_p * ((-rz) * vtpy));
-      gc[3] += (double)(fac_f * (rz * t.vtfx - rx * t.vtfz) +
-                        fac_p * (rz * vtpx));
-      gc[4] += (double)(fac_f * (rx * t.vtfy - ry * t.vtfx) +
-                        fac_p * (rx * vtpy - ry * vtpx));
-      float cn_p = g.w_np * step01(t.resp > 0.0f) - fac_p;
-      float yp_n = cn_p * ry;
-      hp[0] += (double)cn_p;
-      hp[1] += (double)yp_n;
-      hp[2] += (double)((-cn_p) * rx);
-      hp[3] += (double)(yp_n * ry);
-      hp[4] += (double)((-yp_n) * rx);
-      hp[5] += (double)(cn_p * rx * rx);
-      float facs = fac_f + fac_p;
-      hf[0] += (double)facs;
-      hf[1] += (double)(facs * rz);
-      hf[2] += (double)(facs * (-ry));
-      hf[3] += (double)(facs * (-rz));
-      hf[4] += (double)(facs * rx);
-      hf[5] += (double)(facs * ry);
-      hf[6] += (double)(facs * (-rx));
-      hf[7] += (double)(facs * (ry * ry + rz * rz));
-      hf[8] += (double)(facs * (rx * rx + rz * rz));
-      hf[9] += (double)(facs * (rx * rx + ry * ry));
-      hf[10] += (double)(facs * ((-rx) * ry));
-      hf[11] += (double)(facs * ((-rx) * rz));
-      hf[12] += (double)(facs * ((-ry) * rz));
+      for (int q = 0; q < 13; ++q) dhf[q] = 0.0;
+      for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
+        FGeo g;
+        geo_load<kThreads>(slab, k, g);
+        Terms t;
+        terms(g, u, t);
+        const float rx = g.rx, ry = g.ry, rz = g.rz;
+        float fac_f = fac_finger(pc, g, t);
+        float fac_p = fac_plane(g, t, capp_scale);
+        float vtpx = t.fx, vtpy = t.pvy;
+        dgc[0] += (double)(fac_f * t.vtfx + fac_p * vtpx);
+        dgc[1] += (double)(fac_f * t.vtfy + fac_p * vtpy);
+        dgc[2] += (double)(fac_f * (ry * t.vtfz - rz * t.vtfy) +
+                           fac_p * ((-rz) * vtpy));
+        dgc[3] += (double)(fac_f * (rz * t.vtfx - rx * t.vtfz) +
+                           fac_p * (rz * vtpx));
+        dgc[4] += (double)(fac_f * (rx * t.vtfy - ry * t.vtfx) +
+                           fac_p * (rx * vtpy - ry * vtpx));
+        float cn_p = g.w_np * step01(t.resp > 0.0f) - fac_p;
+        float yp_n = cn_p * ry;
+        dhp[0] += (double)cn_p;
+        dhp[1] += (double)yp_n;
+        dhp[2] += (double)((-cn_p) * rx);
+        dhp[3] += (double)(yp_n * ry);
+        dhp[4] += (double)((-yp_n) * rx);
+        dhp[5] += (double)(cn_p * rx * rx);
+        float facs = fac_f + fac_p;
+        dhf[0] += (double)facs;
+        dhf[1] += (double)(facs * rz);
+        dhf[2] += (double)(facs * (-ry));
+        dhf[3] += (double)(facs * (-rz));
+        dhf[4] += (double)(facs * rx);
+        dhf[5] += (double)(facs * ry);
+        dhf[6] += (double)(facs * (-rx));
+        dhf[7] += (double)(facs * (ry * ry + rz * rz));
+        dhf[8] += (double)(facs * (rx * rx + rz * rz));
+        dhf[9] += (double)(facs * (rx * rx + ry * ry));
+        dhf[10] += (double)(facs * ((-rx) * ry));
+        dhf[11] += (double)(facs * ((-rx) * rz));
+        dhf[12] += (double)(facs * ((-ry) * rz));
+        dfc7 += (double)(fac_f * g.sr);
+      }
+      {
+        float v = group_sum<G>(dfc7);
+        if (lane_in_rollout<G>() == 0) park_fc[7] = v;
+      }
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {
+        float v = group_sum<G>(dgc[k]);
+        if (lane_in_rollout<G>() == 0) park_c[k] = v;
+      }
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        float v = group_sum<G>(dhp[k]);
+        if (lane_in_rollout<G>() == 0) park_c[5 + k] = v;
+      }
+#pragma unroll
+      for (int k = 0; k < 13; ++k) {
+        float v = group_sum<G>(dhf[k]);
+        if (lane_in_rollout<G>() == 0) park_c[11 + k] = v;
+      }
     }
 
     // ---- gradient and Hessian, in the Pallas kernel's order of adds ----
-    float d3 = u[3] - uu[3], d4 = u[4] - uu[4], d5 = u[5] - uu[5];
-    float ix = L.iw00 * d3 + L.iw01 * d4 + L.iw02 * d5;
-    float iy = L.iw01 * d3 + L.iw11 * d4 + L.iw12 * d5;
-    float iz = L.iw02 * d3 + L.iw12 * d4 + L.iw22 * d5;
-    float grad[8];
-    grad[0] = pc.mass * (u[0] - uu[0]) - f32(gs[0]) + f32(gc[0]);
-    grad[1] = pc.mass * (u[1] - uu[1]) - f32(gs[1]) + f32(gc[1]);
-    grad[2] = pc.mass * (u[2] - uu[2]) - f32(gs[2]) + f32(gs[3]);
-    grad[3] = ix - f32(gs[4]) + f32(gc[2]);
-    grad[4] = iy - f32(gs[5]) + f32(gc[3]);
-    grad[5] = iz - f32(gs[6]) + f32(gc[4]);
-    grad[6] = pc.fmass_l * (u[6] - uu[6]) + f32(gs[7]);
-    grad[7] = pc.fmass_r * (u[7] - uu[7]) + f32(gs[8]);
-
-    float h[8][8];
+    __syncwarp();
+    float h[8][8], fc[8], gs[9];
+    const float* gc = park_c;
+    const float* hp = park_c + 5;
+    const float* hf = park_c + 11;
     {
       int q = 0;
 #pragma unroll
       for (int a = 0; a < 3; ++a)
 #pragma unroll
-        for (int b = a; b < 8; ++b) h[a][b] = f32(hA[q++]);
+        for (int b = a; b < 8; ++b) h[a][b] = park_a[q++];
       q = 0;
 #pragma unroll
       for (int a = 3; a < 8; ++a)
 #pragma unroll
         for (int b = a; b < 8; ++b) {
           if (a == 6 && b == 7) continue;
-          h[a][b] = f32(hB[q++]);
+          h[a][b] = park_b[q++];
         }
       h[6][7] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) fc[k] = park_fc[k];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) gs[k] = park_gs[k];
     }
-    h[2][2] = h[2][2] + f32(hp[0]);
-    h[2][3] = h[2][3] + f32(hp[1]);
-    h[2][4] = h[2][4] + f32(hp[2]);
-    h[3][3] = h[3][3] + f32(hp[3]);
-    h[3][4] = h[3][4] + f32(hp[4]);
-    h[4][4] = h[4][4] + f32(hp[5]);
-    const float s_facs = f32(hf[0]);
+    float d3 = u[3] - uu[3], d4 = u[4] - uu[4], d5 = u[5] - uu[5];
+    float ix = L.iw00 * d3 + L.iw01 * d4 + L.iw02 * d5;
+    float iy = L.iw01 * d3 + L.iw11 * d4 + L.iw12 * d5;
+    float iz = L.iw02 * d3 + L.iw12 * d4 + L.iw22 * d5;
+    float grad[8];
+    grad[0] = pc.mass * (u[0] - uu[0]) - gs[0] + gc[0];
+    grad[1] = pc.mass * (u[1] - uu[1]) - gs[1] + gc[1];
+    grad[2] = pc.mass * (u[2] - uu[2]) - gs[2] + gs[3];
+    grad[3] = ix - gs[4] + gc[2];
+    grad[4] = iy - gs[5] + gc[3];
+    grad[5] = iz - gs[6] + gc[4];
+    grad[6] = pc.fmass_l * (u[6] - uu[6]) + gs[7];
+    grad[7] = pc.fmass_r * (u[7] - uu[7]) + gs[8];
+
+    h[2][2] = h[2][2] + hp[0];
+    h[2][3] = h[2][3] + hp[1];
+    h[2][4] = h[2][4] + hp[2];
+    h[3][3] = h[3][3] + hp[3];
+    h[3][4] = h[3][4] + hp[4];
+    h[4][4] = h[4][4] + hp[5];
+    const float s_facs = hf[0];
     h[0][0] = h[0][0] + s_facs;
     h[1][1] = h[1][1] + s_facs;
     h[2][2] = h[2][2] + s_facs;
-    h[0][4] = h[0][4] + f32(hf[1]);
-    h[0][5] = h[0][5] + f32(hf[2]);
-    h[1][3] = h[1][3] + f32(hf[3]);
-    h[1][5] = h[1][5] + f32(hf[4]);
-    h[2][3] = h[2][3] + f32(hf[5]);
-    h[2][4] = h[2][4] + f32(hf[6]);
-    h[3][3] = h[3][3] + f32(hf[7]);
-    h[4][4] = h[4][4] + f32(hf[8]);
-    h[5][5] = h[5][5] + f32(hf[9]);
-    h[3][4] = h[3][4] + f32(hf[10]);
-    h[3][5] = h[3][5] + f32(hf[11]);
-    h[4][5] = h[4][5] + f32(hf[12]);
-    h[1][6] = h[1][6] + f32(fc[0]);
-    h[1][7] = h[1][7] + f32(fc[1]);
-    h[3][6] = h[3][6] + f32(fc[2]);
-    h[5][6] = h[5][6] + f32(fc[3]);
-    h[3][7] = h[3][7] + f32(fc[4]);
-    h[5][7] = h[5][7] + f32(fc[5]);
-    h[6][6] = h[6][6] + f32(fc[6]);
-    h[7][7] = h[7][7] + f32(fc[7]);
+    h[0][4] = h[0][4] + hf[1];
+    h[0][5] = h[0][5] + hf[2];
+    h[1][3] = h[1][3] + hf[3];
+    h[1][5] = h[1][5] + hf[4];
+    h[2][3] = h[2][3] + hf[5];
+    h[2][4] = h[2][4] + hf[6];
+    h[3][3] = h[3][3] + hf[7];
+    h[4][4] = h[4][4] + hf[8];
+    h[5][5] = h[5][5] + hf[9];
+    h[3][4] = h[3][4] + hf[10];
+    h[3][5] = h[3][5] + hf[11];
+    h[4][5] = h[4][5] + hf[12];
+    h[1][6] = h[1][6] + fc[0];
+    h[1][7] = h[1][7] + fc[1];
+    h[3][6] = h[3][6] + fc[2];
+    h[5][6] = h[5][6] + fc[3];
+    h[3][7] = h[3][7] + fc[4];
+    h[5][7] = h[5][7] + fc[5];
+    h[6][6] = h[6][6] + fc[6];
+    h[7][7] = h[7][7] + fc[7];
     h[0][0] = h[0][0] + pc.mass;
     h[1][1] = h[1][1] + pc.mass;
     h[2][2] = h[2][2] + pc.mass;
@@ -558,7 +679,7 @@ __device__ void full_solve(const Shared& sh, const Pair& pc,
     h[7][7] = h[7][7] + pc.fmass_r;
 
     float dv[8], u1[8], u2[8];
-    cholesky_solve<8>(h, grad, dv);
+    rollout::cholesky_solve<8>(h, grad, dv);
 #pragma unroll
     for (int a = 0; a < 8; ++a) {
       u1[a] = u[a] + dv[a];
@@ -567,9 +688,9 @@ __device__ void full_solve(const Shared& sh, const Pair& pc,
 
     // ---- pass D: line-search energies of u, u1, u2 (caps at u) ----
     double ef0 = 0.0, ep0 = 0.0, ef1 = 0.0, ep1 = 0.0, ef2 = 0.0, ep2 = 0.0;
-    for (int p = 0; p < P; ++p) {
+    for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
       FGeo g;
-      full_geo(sh, pc, prm, L, p, g);
+      geo_load<kThreads>(slab, k, g);
       Terms t;
       terms(g, u, t);
       float capf = pc.mu_finger * t.lamf + g.rough_capn;
@@ -585,9 +706,9 @@ __device__ void full_solve(const Shared& sh, const Pair& pc,
       ef2 += (double)ef;
       ep2 += (double)ep;
     }
-    float e0 = e_quad(pc, L, u, uu) + f32(ef0) + f32(ep0);
-    float e1 = e_quad(pc, L, u1, uu) + f32(ef1) + f32(ep1);
-    float e2 = e_quad(pc, L, u2, uu) + f32(ef2) + f32(ep2);
+    float e0 = e_quad(pc, L, u, uu) + group_sum<G>(ef0) + group_sum<G>(ep0);
+    float e1 = e_quad(pc, L, u1, uu) + group_sum<G>(ef1) + group_sum<G>(ep1);
+    float e2 = e_quad(pc, L, u2, uu) + group_sum<G>(ef2) + group_sum<G>(ep2);
     bool best12 = e1 <= e2;
     float eb = best12 ? e1 : e2;
     bool take_new = eb <= e0;
@@ -597,103 +718,113 @@ __device__ void full_solve(const Shared& sh, const Pair& pc,
   }
 }
 
-// No finger contact reachable in the block: 3 Newton iterations on the
+// No finger contact reachable in the group: 3 Newton iterations on the
 // 6-DOF plane subproblem (pallas3d.py:739-859); u[6], u[7] stay.
+template <int G>
 __device__ void cheap_solve(const Shared& sh, const Pair& pc,
-                            const Rollout3DParams& prm, const Lane& L, int P,
+                            const Rollout3DParams& prm, Lane& L, int P,
                             const float* uu, float* u) {
   for (int it = 0; it < 3; ++it) {
-    double gq[8], hp[6], hf[13];
+    float gq[8], hp[6], hf[13];
+    {
+      double dgq[8], dhp[6], dhf[13];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) gq[q] = 0.0;
+      for (int q = 0; q < 8; ++q) dgq[q] = 0.0;
 #pragma unroll
-    for (int q = 0; q < 6; ++q) hp[q] = 0.0;
+      for (int q = 0; q < 6; ++q) dhp[q] = 0.0;
 #pragma unroll
-    for (int q = 0; q < 13; ++q) hf[q] = 0.0;
-    for (int p = 0; p < P; ++p) {
-      PGeo g;
-      float wy, wx, wz;
-      plane_geo(sh, pc, prm, L, p, g, wy, wx, wz);
-      const float rx = g.rx, ry = g.ry, rz = g.rz;
-      float vpx = u[0] + u[4] * rz - u[5] * ry;
-      float vpy = u[1] + u[5] * rx - u[3] * rz;
-      float vpz = u[2] + u[3] * ry - u[4] * rx;
-      float resp = mx(g.tgt_pn - vpz, 0.0f);
-      float lamp = g.w_np * resp;
-      float capp = pc.mu_plane * lamp;
-      float vtpn = sqrtf(vpx * vpx + vpy * vpy + 1e-16f);
-      float fac_p = mn(g.w_np, capp / vtpn);
-      float fx = fac_p * vpx, fy = fac_p * vpy;
-      gq[0] += (double)fx;
-      gq[1] += (double)fy;
-      gq[2] += (double)lamp;
-      gq[3] += (double)(lamp * ry);
-      gq[4] += (double)((-rz) * fy);
-      gq[5] += (double)(lamp * rx);
-      gq[6] += (double)(rz * fx);
-      gq[7] += (double)(rx * fy - ry * fx);
-      float cn_p = g.w_np * step01(resp > 0.0f) - fac_p;
-      float yp_n = cn_p * ry;
-      hp[0] += (double)cn_p;
-      hp[1] += (double)yp_n;
-      hp[2] += (double)((-cn_p) * rx);
-      hp[3] += (double)(yp_n * ry);
-      hp[4] += (double)((-yp_n) * rx);
-      hp[5] += (double)(cn_p * rx * rx);
-      hf[0] += (double)fac_p;
-      hf[1] += (double)(fac_p * rz);
-      hf[2] += (double)(fac_p * (-ry));
-      hf[3] += (double)(fac_p * (-rz));
-      hf[4] += (double)(fac_p * rx);
-      hf[5] += (double)(fac_p * ry);
-      hf[6] += (double)(fac_p * (-rx));
-      hf[7] += (double)(fac_p * (ry * ry + rz * rz));
-      hf[8] += (double)(fac_p * (rx * rx + rz * rz));
-      hf[9] += (double)(fac_p * (rx * rx + ry * ry));
-      hf[10] += (double)(fac_p * ((-rx) * ry));
-      hf[11] += (double)(fac_p * ((-rx) * rz));
-      hf[12] += (double)(fac_p * ((-ry) * rz));
+      for (int q = 0; q < 13; ++q) dhf[q] = 0.0;
+      for (int p = lane_in_rollout<G>(); p < P; p += G) {
+        PGeo g;
+        float wy, wx, wz;
+        plane_geo(sh, pc, prm, L, p, g, wy, wx, wz);
+        const float rx = g.rx, ry = g.ry, rz = g.rz;
+        float vpx = u[0] + u[4] * rz - u[5] * ry;
+        float vpy = u[1] + u[5] * rx - u[3] * rz;
+        float vpz = u[2] + u[3] * ry - u[4] * rx;
+        float resp = mx(g.tgt_pn - vpz, 0.0f);
+        float lamp = g.w_np * resp;
+        float capp = pc.mu_plane * lamp;
+        float vtpn = sqrtf(vpx * vpx + vpy * vpy + 1e-16f);
+        float fac_p = mn(g.w_np, capp / vtpn);
+        float fx = fac_p * vpx, fy = fac_p * vpy;
+        dgq[0] += (double)fx;
+        dgq[1] += (double)fy;
+        dgq[2] += (double)lamp;
+        dgq[3] += (double)(lamp * ry);
+        dgq[4] += (double)((-rz) * fy);
+        dgq[5] += (double)(lamp * rx);
+        dgq[6] += (double)(rz * fx);
+        dgq[7] += (double)(rx * fy - ry * fx);
+        float cn_p = g.w_np * step01(resp > 0.0f) - fac_p;
+        float yp_n = cn_p * ry;
+        dhp[0] += (double)cn_p;
+        dhp[1] += (double)yp_n;
+        dhp[2] += (double)((-cn_p) * rx);
+        dhp[3] += (double)(yp_n * ry);
+        dhp[4] += (double)((-yp_n) * rx);
+        dhp[5] += (double)(cn_p * rx * rx);
+        dhf[0] += (double)fac_p;
+        dhf[1] += (double)(fac_p * rz);
+        dhf[2] += (double)(fac_p * (-ry));
+        dhf[3] += (double)(fac_p * (-rz));
+        dhf[4] += (double)(fac_p * rx);
+        dhf[5] += (double)(fac_p * ry);
+        dhf[6] += (double)(fac_p * (-rx));
+        dhf[7] += (double)(fac_p * (ry * ry + rz * rz));
+        dhf[8] += (double)(fac_p * (rx * rx + rz * rz));
+        dhf[9] += (double)(fac_p * (rx * rx + ry * ry));
+        dhf[10] += (double)(fac_p * ((-rx) * ry));
+        dhf[11] += (double)(fac_p * ((-rx) * rz));
+        dhf[12] += (double)(fac_p * ((-ry) * rz));
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) gq[k] = group_sum<G>(dgq[k]);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) hp[k] = group_sum<G>(dhp[k]);
+#pragma unroll
+      for (int k = 0; k < 13; ++k) hf[k] = group_sum<G>(dhf[k]);
     }
     float d3 = u[3] - uu[3], d4 = u[4] - uu[4], d5 = u[5] - uu[5];
     float ix = L.iw00 * d3 + L.iw01 * d4 + L.iw02 * d5;
     float iy = L.iw01 * d3 + L.iw11 * d4 + L.iw12 * d5;
     float iz = L.iw02 * d3 + L.iw12 * d4 + L.iw22 * d5;
     float grad[6];
-    grad[0] = pc.mass * (u[0] - uu[0]) + f32(gq[0]);
-    grad[1] = pc.mass * (u[1] - uu[1]) + f32(gq[1]);
-    grad[2] = pc.mass * (u[2] - uu[2]) - f32(gq[2]);
-    grad[3] = ix - f32(gq[3]) + f32(gq[4]);
-    grad[4] = iy + f32(gq[5]) + f32(gq[6]);
-    grad[5] = iz + f32(gq[7]);
+    grad[0] = pc.mass * (u[0] - uu[0]) + gq[0];
+    grad[1] = pc.mass * (u[1] - uu[1]) + gq[1];
+    grad[2] = pc.mass * (u[2] - uu[2]) - gq[2];
+    grad[3] = ix - gq[3] + gq[4];
+    grad[4] = iy + gq[5] + gq[6];
+    grad[5] = iz + gq[7];
     float h[6][6];
 #pragma unroll
     for (int a = 0; a < 6; ++a)
 #pragma unroll
       for (int b = 0; b < 6; ++b) h[a][b] = 0.0f;
-    const float s_fac = f32(hf[0]);
-    h[2][2] = f32(hp[0]);
-    h[2][3] = f32(hp[1]);
-    h[2][4] = f32(hp[2]);
-    h[3][3] = f32(hp[3]);
-    h[3][4] = f32(hp[4]);
-    h[4][4] = f32(hp[5]);
+    const float s_fac = hf[0];
+    h[2][2] = hp[0];
+    h[2][3] = hp[1];
+    h[2][4] = hp[2];
+    h[3][3] = hp[3];
+    h[3][4] = hp[4];
+    h[4][4] = hp[5];
     h[0][0] = s_fac + pc.mass;
     h[1][1] = s_fac + pc.mass;
     h[2][2] = h[2][2] + (s_fac + pc.mass);
-    h[0][4] = f32(hf[1]);
-    h[0][5] = f32(hf[2]);
-    h[1][3] = f32(hf[3]);
-    h[1][5] = f32(hf[4]);
-    h[2][3] = h[2][3] + f32(hf[5]);
-    h[2][4] = h[2][4] + f32(hf[6]);
-    h[3][3] = h[3][3] + (f32(hf[7]) + L.iw00);
-    h[4][4] = h[4][4] + (f32(hf[8]) + L.iw11);
-    h[5][5] = f32(hf[9]) + L.iw22;
-    h[3][4] = h[3][4] + (f32(hf[10]) + L.iw01);
-    h[3][5] = f32(hf[11]) + L.iw02;
-    h[4][5] = f32(hf[12]) + L.iw12;
+    h[0][4] = hf[1];
+    h[0][5] = hf[2];
+    h[1][3] = hf[3];
+    h[1][5] = hf[4];
+    h[2][3] = h[2][3] + hf[5];
+    h[2][4] = h[2][4] + hf[6];
+    h[3][3] = h[3][3] + (hf[7] + L.iw00);
+    h[4][4] = h[4][4] + (hf[8] + L.iw11);
+    h[5][5] = hf[9] + L.iw22;
+    h[3][4] = h[3][4] + (hf[10] + L.iw01);
+    h[3][5] = hf[11] + L.iw02;
+    h[4][5] = hf[12] + L.iw12;
     float dv[6];
-    cholesky_solve<6>(h, grad, dv);
+    rollout::cholesky_solve<6>(h, grad, dv);
     float cand[3][6];
 #pragma unroll
     for (int a = 0; a < 6; ++a) {
@@ -703,7 +834,7 @@ __device__ void cheap_solve(const Shared& sh, const Pair& pc,
     }
     // energies of u, u1, u2 with the caps of u
     double er[3] = {0.0, 0.0, 0.0}, eh[3] = {0.0, 0.0, 0.0};
-    for (int p = 0; p < P; ++p) {
+    for (int p = lane_in_rollout<G>(); p < P; p += G) {
       PGeo g;
       float wy, wx, wz;
       plane_geo(sh, pc, prm, L, p, g, wy, wx, wz);
@@ -734,7 +865,7 @@ __device__ void cheap_solve(const Shared& sh, const Pair& pc,
       float jx = L.iw00 * f3 + L.iw01 * f4 + L.iw02 * f5;
       float jy = L.iw01 * f3 + L.iw11 * f4 + L.iw12 * f5;
       float jz = L.iw02 * f3 + L.iw12 * f4 + L.iw22 * f5;
-      float en = f32(er[c]) + f32(eh[c]);
+      float en = group_sum<G>(er[c]) + group_sum<G>(eh[c]);
       e[c] = en + 0.5f * (pc.mass * (e0 * e0 + e1 * e1 + e2 * e2) +
                           f3 * jx + f4 * jy + f5 * jz);
     }
@@ -747,74 +878,97 @@ __device__ void cheap_solve(const Shared& sh, const Pair& pc,
   }
 }
 
-__global__ void __launch_bounds__(kLane)
+template <int G>
+__global__ void __launch_bounds__(rollout::Layout<G>::kThreads,
+                                   rollout::Layout<G>::kMinBlocks)
 rollout3d_kernel(const float* __restrict__ coefs,     // (B, 2, 24, 4, 3)
                  const float* __restrict__ points,    // (B, P, 4)
                  const float* __restrict__ scalars,   // (B, 1, 32)
                  const float* __restrict__ poses,     // (N, 3)
                  float* __restrict__ out,             // (12, B, N)
                  int B, int P, int N, Rollout3DParams prm) {
+  using LO = rollout::Layout<G>;
+  constexpr int kThreads = LO::kThreads;
+  constexpr int kCluster = LO::kCluster;
   extern __shared__ float smem[];
   const int pair = blockIdx.y;
   const int tid = threadIdx.x;
   float* s_coef = smem;                         // 2 * 24 * 12
   float* s_scal = s_coef + 2 * kTotSeg * kCoef; // 32
-  float* s_pbx = s_scal + kScal;                // P
+  float* s_pair = s_scal + kScal;               // kPairFloats
+  int* s_vote = reinterpret_cast<int*>(s_pair + kPairFloats);  // 2 * kCluster
+  float* s_lane = s_pair + kPairFloats + 2 * kCluster;   // per rollout
+  float* s_pbx = s_lane + LO::kRollouts * kLaneStride;   // P
   float* s_pby = s_pbx + P;                     // P
   float* s_pbz = s_pby + P;                     // P
-  for (int k = tid; k < 2 * kTotSeg * kCoef; k += kLane)
+  // kHeld floats a point, ceil(P / G) points a lane, one column a thread
+  float* slab = s_pbz + P + tid;
+  for (int k = tid; k < 2 * kTotSeg * kCoef; k += kThreads)
     s_coef[k] = coefs[(size_t)pair * 2 * kTotSeg * kCoef + k];
   if (tid < kScal) s_scal[tid] = scalars[(size_t)pair * kScal + tid];
   __syncthreads();
-  for (int k = tid; k < P; k += kLane) {
+  for (int k = tid; k < P; k += kThreads) {
     const float* pt = points + ((size_t)pair * P + k) * 4;
     s_pbx[k] = pt[0] - s_scal[2];
     s_pby[k] = pt[1] - s_scal[3];
     s_pbz[k] = pt[2] - s_scal[4];
   }
+  if (tid == 0) {
+    Pair& w = *reinterpret_cast<Pair*>(s_pair);
+    w.mass = s_scal[0];
+    w.fmass_l = s_scal[1];
+    w.com_x = s_scal[2];
+    w.com_y = s_scal[3];
+    w.com_z = s_scal[4];
+    w.i00 = s_scal[5];
+    w.i11 = s_scal[6];
+    w.i22 = s_scal[7];
+    w.i01 = s_scal[8];
+    w.i02 = s_scal[9];
+    w.i12 = s_scal[10];
+    w.fmass_r = s_scal[11];
+    w.mu_plane = s_scal[12];
+    w.mu_finger = s_scal[13];
+    const float k_cal = s_scal[14];
+    const float b_cal = s_scal[15];
+    w.unload = s_scal[16];
+    w.rough = s_scal[17];
+    w.ib00 = s_scal[18];
+    w.ib11 = s_scal[19];
+    w.ib22 = s_scal[20];
+    w.ib01 = s_scal[21];
+    w.ib02 = s_scal[22];
+    w.ib12 = s_scal[23];
+    w.c_r = s_scal[24];
+    w.fmax_l = s_scal[25];
+    w.fmin_r = s_scal[26];
+    w.restitution = s_scal[27];
+    w.inv_m = 1.0f / w.mass;
+    w.inv_fml = 1.0f / w.fmass_l;
+    w.inv_fmr = 1.0f / w.fmass_r;
+    w.tgt_f_v = 1.0f - prm.d_imp * b_cal * prm.dt;
+    w.tgt_f_d = prm.d_imp_dt * k_cal;
+    w.mg_dt = w.mass * prm.gravity * prm.dt;
+  }
   __syncthreads();
 
   const Shared sh{s_coef, s_pbx, s_pby, s_pbz};
-  Pair pc;
-  pc.mass = s_scal[0];
-  pc.fmass_l = s_scal[1];
-  pc.com_x = s_scal[2];
-  pc.com_y = s_scal[3];
-  pc.com_z = s_scal[4];
-  pc.i00 = s_scal[5];
-  pc.i11 = s_scal[6];
-  pc.i22 = s_scal[7];
-  pc.i01 = s_scal[8];
-  pc.i02 = s_scal[9];
-  pc.i12 = s_scal[10];
-  pc.fmass_r = s_scal[11];
-  pc.mu_plane = s_scal[12];
-  pc.mu_finger = s_scal[13];
-  const float k_cal = s_scal[14];
-  const float b_cal = s_scal[15];
-  pc.unload = s_scal[16];
-  pc.rough = s_scal[17];
-  pc.ib00 = s_scal[18];
-  pc.ib11 = s_scal[19];
-  pc.ib22 = s_scal[20];
-  pc.ib01 = s_scal[21];
-  pc.ib02 = s_scal[22];
-  pc.ib12 = s_scal[23];
-  pc.c_r = s_scal[24];
-  pc.fmax_l = s_scal[25];
-  pc.fmin_r = s_scal[26];
-  pc.restitution = s_scal[27];
-  pc.inv_m = 1.0f / pc.mass;
-  pc.inv_fml = 1.0f / pc.fmass_l;
-  pc.inv_fmr = 1.0f / pc.fmass_r;
-  pc.tgt_f_v = 1.0f - prm.d_imp * b_cal * prm.dt;
-  pc.tgt_f_d = prm.d_imp_dt * k_cal;
-  pc.mg_dt = pc.mass * prm.gravity * prm.dt;
+  const Pair& pc = *reinterpret_cast<const Pair*>(s_pair);
+  rollout::GroupVote<kCluster> vote;
+  vote.init(s_vote);
 
-  const int j = blockIdx.x * kLane + tid;       // pose index (N % 128 == 0)
-  const float pose_x = poses[(size_t)j * 3 + 0];
-  const float pose_y = poses[(size_t)j * 3 + 1];
-  const float theta0 = poses[(size_t)j * 3 + 2];
+  // thread -> (rollout of the pose group, lane of the rollout)
+  const int rank = (int)rollout::cg::this_cluster().block_rank();
+  const int t_grp = rank * kThreads + tid;
+  Lane& L = *reinterpret_cast<Lane*>(s_lane + (tid / G) * kLaneStride);
+  float pose_x, pose_y, theta0;
+  {
+    const int j = (blockIdx.x / kCluster) * kLane + t_grp / G;   // pose index
+    pose_x = poses[(size_t)j * 3 + 0];
+    pose_y = poses[(size_t)j * 3 + 1];
+    theta0 = poses[(size_t)j * 3 + 2];
+    if (lane_in_rollout<G>() == 0) L.pose = j;
+  }
   const float half = theta0 * 0.5f;
   const float qw0 = cosf(half), qz0 = sinf(half);
   const float c0 = cosf(theta0), s0 = sinf(theta0);
@@ -827,7 +981,7 @@ rollout3d_kernel(const float* __restrict__ coefs,     // (B, 2, 24, 4, 3)
   float vx = 0.f, vy = 0.f, vz = 0.f, ox = 0.f, oy = 0.f, oz = 0.f;
   float ql = 0.f, qr = 0.f, qdl = 0.f, qdr = 0.f;
   float wyn = -1e9f, wyx = -1e9f;
-  float cnt_f = 0.f, cnt_c = 0.f, cnt_i = 0.f;
+  float cnt_f = 0.f, cnt_c = 0.f;
   float spx = px, spy = py, sqw = qw0, sqz = qz0;
 
   for (int i = 0; i < prm.steps; ++i) {
@@ -838,10 +992,10 @@ rollout3d_kernel(const float* __restrict__ coefs,     // (B, 2, 24, 4, 3)
       vx = 0.f; vy = 0.f; vz = 0.f; ox = 0.f; oy = 0.f; oz = 0.f;
       wyn = -1e9f;
     }
-    // ---- settled-travel gate (block max of |v|, block-any reachability)
+    // ---- settled-travel gate (group max of |v|, group-any reachability):
+    // two bits that do not depend on each other, one vote
     float mot = mx(mx(fabsf(vx), fabsf(vy)), fabsf(vz));
     mot = mx(mot, mx(mx(fabsf(ox), fabsf(oy)), fabsf(oz)));
-    const bool unsettled = __syncthreads_or(!(mot < prm.eps_settled));
     const float f_l = prm.kp * (prm.ctrl_l - ql) - prm.damping * qdl;
     const float f_r = prm.kp * (prm.ctrl_r - qr) - prm.damping * qdr;
     const float ql_n = ql + dt * (qdl + dt * f_l * pc.inv_fml);
@@ -849,68 +1003,94 @@ rollout3d_kernel(const float* __restrict__ coefs,     // (B, 2, 24, 4, 3)
     const bool maybe =
         (wyn - prm.marg <= prm.surf_l0 + mx(ql, ql_n) + pc.fmax_l) ||
         (wyx + prm.marg >= prm.surf_r0 + mn(qr, qr_n) + pc.fmin_r);
-    const bool reach = __syncthreads_or(maybe);
+    // bit 0: some lane unsettled; bit 1: some lane can reach a finger
+    const int gate = vote.any2(!(mot < prm.eps_settled), maybe);
 
-    if (!unsettled && !reach) {
+    if (gate == 0) {
       // settled travel: only the finger servos advance
       qdl = qdl + dt * f_l * pc.inv_fml;
       qdr = qdr + dt * f_r * pc.inv_fmr;
       ql = ql + dt * qdl;
       qr = qr + dt * qdr;
     } else {
-      Lane L;
-      L.r00 = 1.0f - 2.0f * (qy * qy + qz * qz);
-      L.r01 = 2.0f * (qx * qy - qw * qz);
-      L.r02 = 2.0f * (qx * qz + qw * qy);
-      L.r10 = 2.0f * (qx * qy + qw * qz);
-      L.r11 = 1.0f - 2.0f * (qx * qx + qz * qz);
-      L.r12 = 2.0f * (qy * qz - qw * qx);
-      L.r20 = 2.0f * (qx * qz - qw * qy);
-      L.r21 = 2.0f * (qy * qz + qw * qx);
-      L.r22 = 1.0f - 2.0f * (qx * qx + qy * qy);
-      float w6[6], iw6[6];
-      sandwich(L, pc.i00, pc.i11, pc.i22, pc.i01, pc.i02, pc.i12, w6);
-      sandwich(L, pc.ib00, pc.ib11, pc.ib22, pc.ib01, pc.ib02, pc.ib12, iw6);
-      L.w00 = w6[0]; L.w01 = w6[1]; L.w02 = w6[2];
-      L.w11 = w6[3]; L.w12 = w6[4]; L.w22 = w6[5];
-      L.iw00 = iw6[0]; L.iw01 = iw6[1]; L.iw02 = iw6[2];
-      L.iw11 = iw6[3]; L.iw12 = iw6[4]; L.iw22 = iw6[5];
-      L.px = px; L.py = py; L.pz = pz;
-      L.vx = vx; L.vy = vy; L.vz = vz;
-      L.ox = ox; L.oy = oy; L.oz = oz;
-      L.ql = ql; L.qr = qr; L.qdl = qdl; L.qdr = qdr;
+      // the rollout's lanes are done with the last step's Lane
+      __syncwarp();
+      if (lane_in_rollout<G>() == 0) {
+        float r[9];
+        r[0] = 1.0f - 2.0f * (qy * qy + qz * qz);
+        r[1] = 2.0f * (qx * qy - qw * qz);
+        r[2] = 2.0f * (qx * qz + qw * qy);
+        r[3] = 2.0f * (qx * qy + qw * qz);
+        r[4] = 1.0f - 2.0f * (qx * qx + qz * qz);
+        r[5] = 2.0f * (qy * qz - qw * qx);
+        r[6] = 2.0f * (qx * qz - qw * qy);
+        r[7] = 2.0f * (qy * qz + qw * qx);
+        r[8] = 1.0f - 2.0f * (qx * qx + qy * qy);
+        float w6[6], iw6[6];
+        sandwich(r, pc.i00, pc.i11, pc.i22, pc.i01, pc.i02, pc.i12, w6);
+        sandwich(r, pc.ib00, pc.ib11, pc.ib22, pc.ib01, pc.ib02, pc.ib12,
+                 iw6);
+        L.r00 = r[0]; L.r01 = r[1]; L.r02 = r[2];
+        L.r10 = r[3]; L.r11 = r[4]; L.r12 = r[5];
+        L.r20 = r[6]; L.r21 = r[7]; L.r22 = r[8];
+        L.w00 = w6[0]; L.w01 = w6[1]; L.w02 = w6[2];
+        L.w11 = w6[3]; L.w12 = w6[4]; L.w22 = w6[5];
+        L.iw00 = iw6[0]; L.iw01 = iw6[1]; L.iw02 = iw6[2];
+        L.iw11 = iw6[3]; L.iw12 = iw6[4]; L.iw22 = iw6[5];
+        L.px = px; L.py = py; L.pz = pz;
+        L.vx = vx; L.vy = vy; L.vz = vz;
+        L.ox = ox; L.oy = oy; L.oz = oz;
+        L.ql = ql; L.qr = qr; L.qdl = qdl; L.qdr = qdr;
+        L.uu[0] = vx; L.uu[1] = vy; L.uu[2] = vz - prm.g_dt;
+        L.uu[3] = ox; L.uu[4] = oy; L.uu[5] = oz;
+        L.uu[6] = qdl + dt * f_l * pc.inv_fml;
+        L.uu[7] = qdr + dt * f_r * pc.inv_fmr;
+        L.keep[0] = qw; L.keep[1] = qx; L.keep[2] = qy; L.keep[3] = qz;
+        L.keep[4] = spx; L.keep[5] = spy; L.keep[6] = sqw; L.keep[7] = sqz;
+      }
+      __syncwarp();
 
-      // the object's wy span as of this step (travel broad-phase cache)
-      for (int p = 0; p < P; ++p) {
+      // the object's wy span as of this step (travel broad-phase cache);
+      // min and max are exact under any order
+      float lo = INFINITY, hi = -INFINITY;
+      for (int p = lane_in_rollout<G>(); p < P; p += G) {
         float ry = L.r10 * sh.pbx[p] + L.r11 * sh.pby[p] + L.r12 * sh.pbz[p];
         float wy = py + ry;
-        if (p == 0) {
-          wyn = wy;
-          wyx = wy;
-        } else {
-          wyn = mn(wyn, wy);
-          wyx = mx(wyx, wy);
-        }
+        lo = mn(lo, wy);
+        hi = mx(hi, wy);
       }
-      float uu[8] = {vx, vy, vz - prm.g_dt, ox, oy, oz,
-                     qdl + dt * f_l * pc.inv_fml, qdr + dt * f_r * pc.inv_fmr};
+      wyn = group_min<G>(lo);
+      wyx = group_max<G>(hi);
+      if (lane_in_rollout<G>() == 0) {
+        L.keep[8] = wyn;
+        L.keep[9] = wyx;
+      }
+      const float* uu = L.uu;
       float u[8];
 #pragma unroll
       for (int a = 0; a < 8; ++a) u[a] = uu[a];
       const bool near = (wyn <= prm.surf_l0 + ql + pc.fmax_l) ||
                         (wyx >= prm.surf_r0 + qr + pc.fmin_r);
-      const bool any_f = __syncthreads_or(near);
+      const bool any_f = vote.any(near);
+      if (lane_in_rollout<G>() == 0) {
+        L.keep[10] = cnt_f + (any_f ? 1.0f : 0.0f);
+        L.keep[11] = cnt_c + (any_f ? 0.0f : 1.0f);
+      }
       if (any_f) {
-        full_solve(sh, pc, prm, L, P, uu, u);
-        cnt_f = cnt_f + 1.0f;
-        cnt_i = cnt_i + (float)prm.newton_iters;
+        full_solve<G>(sh, pc, prm, L, P, slab, uu, u);
       } else {
-        cheap_solve(sh, pc, prm, L, P, uu, u);
-        cnt_c = cnt_c + 1.0f;
+        cheap_solve<G>(sh, pc, prm, L, P, uu, u);
       }
       vx = u[0]; vy = u[1]; vz = u[2];
       ox = u[3]; oy = u[4]; oz = u[5];
       qdl = u[6]; qdr = u[7];
+      // back from shared memory: the state the solve did not touch (the
+      // votes and shuffles since it was stored order the reads after it)
+      px = L.px; py = L.py; pz = L.pz; ql = L.ql; qr = L.qr;
+      qw = L.keep[0]; qx = L.keep[1]; qy = L.keep[2]; qz = L.keep[3];
+      spx = L.keep[4]; spy = L.keep[5]; sqw = L.keep[6]; sqz = L.keep[7];
+      wyn = L.keep[8]; wyx = L.keep[9];
+      cnt_f = L.keep[10]; cnt_c = L.keep[11];
       // integrate
       px = px + dt * vx;
       py = py + dt * vy;
@@ -932,9 +1112,14 @@ rollout3d_kernel(const float* __restrict__ coefs,     // (B, 2, 24, 4, 3)
       spx = px; spy = py; sqw = qw; sqz = qz;
     }
   }
+  vote.finish();
   if (prm.snapshot_step <= 0 || prm.snapshot_step >= prm.steps) {
     spx = px; spy = py; sqw = qw; sqz = qz;
   }
+  if (lane_in_rollout<G>() != 0) return;   // one lane of the rollout writes it out
+  const int j = L.pose;   // index and pose: not kept in registers meanwhile
+  pose_x = poses[(size_t)j * 3 + 0];
+  pose_y = poses[(size_t)j * 3 + 1];
 
   // readout: final origin and z-quaternion, tip-over validity, snapshot
   const float r00 = 1.0f - 2.0f * (qy * qy + qz * qz);
@@ -964,26 +1149,31 @@ rollout3d_kernel(const float* __restrict__ coefs,     // (B, 2, 24, 4, 3)
   out[8 * plane + o] = sorg_y - pose_y;
   out[9 * plane + o] = cnt_f;
   out[10 * plane + o] = cnt_c;
-  out[11 * plane + o] = cnt_i;
+  // every full solve runs newton_iters iterations (exact in float32)
+  out[11 * plane + o] = cnt_f * (float)prm.newton_iters;
 }
 
 }  // namespace
 
+// `plan` (5 ints, may be null) receives the rollout::Plan of the launch.
+// Nothing is launched, and an error comes back, when P needs more shared
+// memory than a block may have or the card cannot hold one cluster
+// (rollout::launch_clusters).
 extern "C" int rollout3d_launch(const float* coefs, const float* points,
                                 const float* scalars, const float* poses,
                                 float* out, int B, int P, int N,
-                                Rollout3DParams prm, void* stream) {
+                                Rollout3DParams prm, int* plan, void* stream) {
+  constexpr int G = kThreadsPerRollout;
+  using LO = rollout::Layout<G>;
   if (B <= 0 || P <= 0 || N <= 0 || N % kLane != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (2 * kTotSeg * kCoef + kScal + 3 * P);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        rollout3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(N / kLane, B);
-  rollout3d_kernel<<<grid, kLane, smem, (cudaStream_t)stream>>>(
-      coefs, points, scalars, poses, out, B, P, N, prm);
-  return (int)cudaGetLastError();
+  const size_t smem =
+      sizeof(float) * (2 * kTotSeg * kCoef + kScal + kPairFloats +
+                       LO::kRollouts * kLaneStride + 3 * P +
+                       kHeld * LO::kThreads * (size_t)((P + G - 1) / G)) +
+      sizeof(int) * 2 * LO::kCluster;
+  return rollout::launch_clusters<LO>(
+      rollout3d_kernel<G>, dim3((N / kLane) * LO::kCluster, B), smem,
+      (cudaStream_t)stream, reinterpret_cast<rollout::Plan*>(plan), G, coefs,
+      points, scalars, poses, out, B, P, N, prm);
 }

@@ -1,0 +1,250 @@
+// Parts shared by the two rollout kernels (K1 csrc/rollout2d.cu, K2
+// csrc/rollout3d.cu) for NVIDIA Hopper (sm_90a).
+//
+// Layout. A *pose group* is 128 rollouts of one pair: the cell on which the
+// Pallas kernels decide their block-uniform branches. G threads carry one
+// rollout (G lanes of one warp; G = 32, a whole warp, or 16); lane r of the
+// rollout handles the points p = r, r + G, ... and every lane of the
+// rollout carries the rollout's state and does its small dense algebra
+// redundantly, so nothing is broadcast. A pose group is therefore 128 * G
+// threads: one thread block cluster of Layout<G>::kCluster blocks of
+// Layout<G>::kThreads threads.
+//
+// Point sums. Each lane accumulates its points in float64 in increasing p,
+// the G partial sums are added by an xor butterfly (strides G/2, ..., 1:
+// the same value on every lane, since a + b == b + a), and the total rounds
+// once to float32. dgdm_tpu_torch/sim/point_sum.py computes the same order.
+//
+// Group votes. GroupVote ORs one or two bits over all 128 * G threads of a
+// pose group: __syncthreads_or inside each block, then threads
+// 0..kCluster-1 of each block store the block's bits into their block's slot
+// in every block of the cluster through distributed shared memory, one
+// cluster barrier, and every block ORs its kCluster slots. The slots are
+// double-buffered by vote parity: a block can run at most one vote ahead of
+// a peer (it cannot pass the next cluster barrier before the peer arrives
+// there, and the peer arrives only after it has read the current slots), so
+// one barrier a vote is enough.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace rollout {
+
+namespace cg = cooperative_groups;
+
+constexpr int kGroup = 128;   // rollouts per pose group
+
+// The two layouts. Each keeps a thread at <= 128 registers, so that an SM
+// holds 16 warps: one 512-thread block (G = 32, K2) or two 256-thread blocks
+// (G = 16, K1); a pose group is a cluster of 8 blocks either way. Measured on
+// an NVIDIA H100 80GB HBM3 at 700 W, each of the two led its kernel over the
+// other and over G = 8 at the verification shape, at the datagen shape and at
+// every count of pose groups from 16 to 384, so the launchers choose nothing
+// and no other layout is built. One thread a rollout (one 128-thread block a
+// pose group, ~160 registers, no cluster) had lost to these too.
+template <int G>
+struct Layout {
+  static_assert(G == 16 || G == 32, "unsupported G");
+  static constexpr int kThreads = G == 32 ? 512 : 256;
+  // blocks an SM must be able to hold (bounds the registers a thread)
+  static constexpr int kMinBlocks = 512 / kThreads;
+  static constexpr int kCluster = kGroup * G / kThreads;   // 8
+  static constexpr int kRollouts = kThreads / G;   // rollouts of one block
+};
+
+__device__ __forceinline__ float mx(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ float mn(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return mn(mx(x, lo), hi);
+}
+__device__ __forceinline__ float rsq(float x) { return 1.0f / sqrtf(x); }
+__device__ __forceinline__ float step01(bool c) { return c ? 1.0f : 0.0f; }
+
+// The thread's lane within its rollout (0..G-1; a rollout's G lanes are an
+// aligned run of one warp's lanes). Read from %laneid at every use and not
+// kept: the one register it would hold across a whole solve is the one
+// that does not fit beside the float64 sums at 128 registers a thread.
+template <int G>
+__device__ __forceinline__ int lane_in_rollout() {
+  unsigned lane;
+  asm volatile("mov.u32 %0, %%laneid;" : "=r"(lane));
+  return (int)(lane % G);
+}
+
+// Total of the G lanes' float64 partial sums, rounded once to float32.
+template <int G>
+__device__ __forceinline__ float group_sum(double v) {
+#pragma unroll
+  for (int m = G / 2; m >= 1; m >>= 1)
+    v = v + __shfl_xor_sync(0xffffffffu, v, m);
+  return (float)v;
+}
+
+// NaN-propagating min / max over the G lanes (exact under any order).
+template <int G>
+__device__ __forceinline__ float group_min(float v) {
+#pragma unroll
+  for (int m = G / 2; m >= 1; m >>= 1)
+    v = mn(v, __shfl_xor_sync(0xffffffffu, v, m));
+  return v;
+}
+template <int G>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int m = G / 2; m >= 1; m >>= 1)
+    v = mx(v, __shfl_xor_sync(0xffffffffu, v, m));
+  return v;
+}
+
+// OR of vote bits over a pose group. `slots` points at 2 * kCluster ints of
+// this block's shared memory. Every thread of
+// the cluster calls each vote, in the same order.
+template <int CS>
+struct GroupVote {
+  int* slots;
+  int parity;
+
+  __device__ __forceinline__ void init(int* s) {
+    slots = s;
+    parity = 0;
+    // no block may store into a peer that has not started
+    cg::this_cluster().sync();
+  }
+
+  __device__ __forceinline__ int across(int mine) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int base = parity * CS;
+    if (threadIdx.x < CS) {
+      int* peer = cluster.map_shared_rank(
+          slots + base + (int)cluster.block_rank(), threadIdx.x);
+      *peer = mine;
+    }
+    cluster.sync();
+    const volatile int* s = slots;
+    int r = 0;
+#pragma unroll
+    for (int k = 0; k < CS; ++k) r |= s[base + k];
+    parity ^= 1;
+    return r;
+  }
+
+  // one bit
+  __device__ __forceinline__ bool any(bool b) {
+    return across(__syncthreads_or(b) ? 1 : 0) != 0;
+  }
+  // two independent bits behind one cluster barrier -> bit 0 | bit 1 << 1
+  __device__ __forceinline__ int any2(bool b0, bool b1) {
+    const int v0 = __syncthreads_or(b0) ? 1 : 0;
+    const int v1 = __syncthreads_or(b1) ? 2 : 0;
+    return across(v0 | v1);
+  }
+
+  // no block may leave while a peer can still store into it or read it
+  __device__ __forceinline__ void finish() {
+    cg::this_cluster().sync();
+  }
+};
+
+// Unrolled Cholesky solve of H d = -grad over the upper triangle of H
+// (rsqrt(max(s, 1e-12)) on the diagonal, as the Pallas kernels write it).
+template <int N>
+__device__ __forceinline__ void cholesky_solve(const float (&h)[N][N],
+                                               const float* grad, float* dv) {
+  float L[N][N], Ld[N], yv[N];
+#pragma unroll
+  for (int a = 0; a < N; ++a) {
+    float s = h[a][a];
+#pragma unroll
+    for (int k = 0; k < a; ++k) s = s - L[a][k] * L[a][k];
+    float dinv = rsq(mx(s, 1e-12f));
+    Ld[a] = dinv;
+#pragma unroll
+    for (int b = a + 1; b < N; ++b) {
+      float s2 = h[a][b];
+#pragma unroll
+      for (int k = 0; k < a; ++k) s2 = s2 - L[b][k] * L[a][k];
+      L[b][a] = s2 * dinv;
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < N; ++a) {
+    float s = -grad[a];
+#pragma unroll
+    for (int k = 0; k < a; ++k) s = s - L[a][k] * yv[k];
+    yv[a] = s * Ld[a];
+  }
+#pragma unroll
+  for (int a = N - 1; a >= 0; --a) {
+    float s = yv[a];
+#pragma unroll
+    for (int k = a + 1; k < N; ++k) s = s - L[k][a] * dv[k];
+    dv[a] = s * Ld[a];
+  }
+}
+
+// The layout of a launch (filled by launch_clusters): threads per rollout,
+// blocks per cluster, threads per block, cudaOccupancyMaxActiveClusters and
+// the bytes of shared memory a block.
+struct Plan {
+  int g, cluster, threads, max_active_clusters, smem;
+};
+
+// Launch `kernel` as clusters of LO::kCluster blocks of LO::kThreads threads
+// with `smem` bytes of shared memory a block on `stream`; allocates nothing
+// and does not synchronise. Fills `plan` (unless null) and returns a
+// cudaError_t, without launching: cudaErrorInvalidValue when `smem` is more
+// than a block may have on this card (the per-point geometry that the kernels
+// hold there grows with the point count), cudaErrorLaunchOutOfResources when
+// the card cannot hold even one such cluster.
+template <class LO, class... KArgs, class... Args>
+int launch_clusters(void (*kernel)(KArgs...), dim3 grid, size_t smem,
+                    cudaStream_t stream, Plan* plan, int g, Args... args) {
+  if (plan != nullptr) {
+    plan->g = g;
+    plan->cluster = LO::kCluster;
+    plan->threads = LO::kThreads;
+    plan->max_active_clusters = 0;
+    plan->smem = (int)smem;
+  }
+  int dev = 0, most = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return (int)e;
+  if (smem > (size_t)most) return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(LO::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = LO::kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int active = 0;
+  e = cudaOccupancyMaxActiveClusters(
+      &active, reinterpret_cast<const void*>(kernel), &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (plan != nullptr) plan->max_active_clusters = active;
+  if (active == 0) return (int)cudaErrorLaunchOutOfResources;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace rollout

@@ -3,14 +3,16 @@ JAX counterpart: the JAX package's kernels are Pallas, compiled by JAX).
 
 Each source under ``dgdm_tpu_torch/csrc/`` has a plain C interface. On first
 use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``dgdm_tpu_torch/_build/`` (named by a hash of the source and the flags, so a
-changed source rebuilds) and loaded with ctypes. Nothing here runs at import:
+``dgdm_tpu_torch/_build/`` (named by a hash of the source, of every header
+``csrc/*.cuh`` beside it and of the flags, so a change to any of them
+rebuilds) and loaded with ctypes. Nothing here runs at import:
 the CPU tests import every module on a host without ``nvcc``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -38,27 +40,38 @@ def nvcc() -> str:
 
 class CudaLibrary:
     """One kernel source: ``build()`` compiles it unless this source's library
-    exists; ``get()`` loads it and lets ``bind`` set the C signatures."""
+    exists (with ``force`` even then; ``build_log`` holds the output of the
+    compiler, ``ptxas -v`` included, when this process compiled); ``get()``
+    loads it and lets ``bind`` set the C signatures."""
 
     def __init__(self, source: str, bind: Callable[[ctypes.CDLL], None]):
         self.name = os.path.splitext(source)[0]
         self.src = os.path.join(_PKG, "csrc", source)
+        self.build_dir = _BUILD
         self._bind = bind
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
         self.build_log = ""
 
     def path(self) -> str:
-        with open(self.src, "rb") as f:
-            digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-        return os.path.join(_BUILD,
+        """The library's file: named by the bytes of the source, of every
+        ``*.cuh`` in the source's directory (the sources include them) and
+        of the flags."""
+        digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        headers = sorted(glob.glob(
+            os.path.join(os.path.dirname(self.src), "*.cuh")))
+        for name in [self.src] + headers:
+            with open(name, "rb") as f:
+                digest.update(os.path.basename(name).encode() + b"\0"
+                              + f.read())
+        return os.path.join(self.build_dir,
                             f"lib{self.name}_{digest.hexdigest()[:12]}.so")
 
-    def build(self) -> str:
+    def build(self, force: bool = False) -> str:
         so = self.path()
-        if os.path.exists(so):
+        if os.path.exists(so) and not force:
             return so
-        os.makedirs(_BUILD, exist_ok=True)
+        os.makedirs(self.build_dir, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
         proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, self.src],
                               capture_output=True, text=True)

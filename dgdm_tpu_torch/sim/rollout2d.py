@@ -10,6 +10,10 @@ shared pose batch and runs every (pair, pose) rollout for all steps:
 - on CPU tensors it runs the plain PyTorch version
   (``sim/rollout2d_ref.py``).
 
+The kernel gives a rollout 16 threads of a warp (a 128-pose group is one
+thread block cluster) and holds each thread's per-point contact geometry in
+shared memory; ``LAST_PLAN`` holds the layout of the last launch.
+
 There is no fallback between the two: a CUDA tensor launches the kernel or
 raises. ``KERNEL_LAUNCHES["rollout2d"]`` counts kernel launches.
 """
@@ -35,6 +39,12 @@ from dgdm_tpu_torch.sim.rollout2d_ref import (
 
 # kernel launches per wrapper, for showing that a run went through them
 KERNEL_LAUNCHES = {"rollout2d": 0}
+# threads per rollout, blocks per cluster, threads per block,
+# cudaOccupancyMaxActiveClusters and bytes of shared memory a block, of the
+# last launch
+LAST_PLAN: dict = {}
+# threads per rollout of the kernel's layout (csrc/rollout2d.cu)
+THREADS_PER_ROLLOUT = 16
 
 
 class _Params(ctypes.Structure):
@@ -50,7 +60,8 @@ class _Params(ctypes.Structure):
 
 def _bind(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
-    lib.rollout2d_launch.argtypes = [p] * 6 + [ctypes.c_int] * 4 + [_Params, p]
+    lib.rollout2d_launch.argtypes = [p] * 6 + [ctypes.c_int] * 4 + [
+        _Params, ctypes.POINTER(ctypes.c_int * 5), p]
     lib.rollout2d_launch.restype = ctypes.c_int
 
 
@@ -104,11 +115,18 @@ def rollout_cuda(coefs, contour, support, scalars, poses, steps,
         poses.shape[0]
     out = torch.empty((8, b, n), dtype=torch.float32, device=poses.device)
     stream = torch.cuda.current_stream(poses.device).cuda_stream
+    plan = (ctypes.c_int * 5)()
     err = lib.rollout2d_launch(
         *[t.data_ptr() for t in ins], out.data_ptr(), b, p, s, n,
-        _params(steps, regrasp_every, snapshot_step), stream)
+        _params(steps, regrasp_every, snapshot_step), ctypes.byref(plan),
+        stream)
+    LAST_PLAN.update(zip(("threads_per_rollout", "cluster", "threads",
+                          "max_active_clusters", "shared_bytes"), plan))
     if err != 0:
-        raise RuntimeError(f"rollout2d kernel launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"rollout2d kernel launch failed: CUDA error {err} (launch plan "
+            f"{LAST_PLAN}; the shared memory a block needs grows with the "
+            f"point count, {p} here)")
     KERNEL_LAUNCHES["rollout2d"] += 1
     return out
 

@@ -16,10 +16,12 @@ and ``chip_smoke.py`` as the reference the CUDA kernel is held to. Every
 expression keeps the Pallas kernel's operand order; ``rsqrt`` is spelled
 ``1 / sqrt`` so that the CPU and the card round it alike. Sums over contour
 and support points accumulate in float64 and round once to float32 — here
-and in the kernel — so that they do not depend on the order of the
-reduction: the squeeze is chaotic enough that reordered float32 sums move
-~1% of the full 9,000-pose grid's lanes by more than 1e-3 rad after 200
-steps (measured on the H100). State and elementwise physics stay float32.
+and in the kernel (``sim/point_sum.py``) — so that they do not depend on
+the order of the reduction in all but rare cases, and ``sum_group=G``
+reproduces the order of the kernel with G threads a rollout exactly: the
+squeeze is chaotic enough that reordered float32 sums move ~1% of the full
+9,000-pose grid's lanes by more than 1e-3 rad after 200 steps (measured on
+the H100). State and elementwise physics stay float32.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from dgdm_tpu_torch.sim.engine2d import (
     K_PLANE,
     NEWTON_ITERS,
 )
+from dgdm_tpu_torch.sim.point_sum import point_sum
 
 LANE = 128
 # settled-travel fast-path gate: post-solve velocity magnitude below which
@@ -70,10 +73,13 @@ def profile_batch_ref(
     steps: int = SIM.steps_2d,
     regrasp_every: int = 0,
     snapshot_step: int = 0,
+    sum_group: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """Returns 8 (B, N) float32 tensors: dtheta, dpx, dpy at the snapshot;
     final theta (in [0, 2pi)), final origin x, y; and the per-block full and
-    cheap solve step counts (lane-broadcast)."""
+    cheap solve step counts (lane-broadcast). ``sum_group`` = G adds the
+    point sums in the order of the CUDA kernel with G threads a rollout (0:
+    ``torch.sum``'s own; ``point_sum``)."""
     g = GRIPPER_2D
     dt = SIM.dt
     x0f, x1f = g.ctrl_x_min, g.ctrl_x_max
@@ -135,10 +141,9 @@ def profile_batch_ref(
     d_imp = torch.tensor(IMPEDANCE, dtype=torch.float32, device=poses.device)
 
     def rsum(x):
-        # over points; accumulated in float64 and rounded once, so that the
-        # sum does not depend on the reduction order (the CUDA kernel sums
-        # sequentially, torch's reductions in tree order)
-        return torch.sum(x, dim=2, dtype=torch.float64).to(torch.float32)
+        # over contour or support points: accumulated in float64, rounded
+        # once, in the order that sum_group names
+        return point_sum(x, dim=2, group=sum_group)
 
     def seg_coefs(fi, seg):
         """c0..c3 of finger ``fi`` at segment indices seg (B, NB, P, L)."""

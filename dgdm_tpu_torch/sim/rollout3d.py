@@ -10,6 +10,10 @@ a shared pose batch and runs every (pair, pose) rollout for all steps:
 - on CPU tensors it runs the plain PyTorch version
   (``sim/rollout3d_ref.py``).
 
+The kernel gives a rollout 32 threads of a warp (a 128-pose group is one
+thread block cluster) and holds each thread's per-point contact geometry in
+shared memory; ``LAST_PLAN`` holds the layout of the last launch.
+
 There is no fallback between the two: a CUDA tensor launches the kernel or
 raises. ``KERNEL_LAUNCHES["rollout3d"]`` counts kernel launches. The contact
 solver is the coupled Newton solve that the JAX wrapper resolves from
@@ -47,6 +51,12 @@ from dgdm_tpu_torch.sim.surface_fit import (
 
 # kernel launches per wrapper, for showing that a run went through them
 KERNEL_LAUNCHES = {"rollout3d": 0}
+# threads per rollout, blocks per cluster, threads per block,
+# cudaOccupancyMaxActiveClusters and bytes of shared memory a block, of the
+# last launch
+LAST_PLAN: dict = {}
+# threads per rollout of the kernel's layout (csrc/rollout3d.cu)
+THREADS_PER_ROLLOUT = 32
 
 # float fields of Rollout3DParams in csrc/rollout3d.cu, in order; each value
 # comes from rollout3d_ref.constants()
@@ -67,7 +77,8 @@ class _Params(ctypes.Structure):
 
 def _bind(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
-    lib.rollout3d_launch.argtypes = [p] * 5 + [ctypes.c_int] * 3 + [_Params, p]
+    lib.rollout3d_launch.argtypes = [p] * 5 + [ctypes.c_int] * 3 + [
+        _Params, ctypes.POINTER(ctypes.c_int * 5), p]
     lib.rollout3d_launch.restype = ctypes.c_int
 
 
@@ -111,11 +122,18 @@ def rollout_cuda(coefs, points, scalars, poses, steps, regrasp_every,
     b, p, n = points.shape[0], points.shape[1], poses.shape[0]
     out = torch.empty((12, b, n), dtype=torch.float32, device=poses.device)
     stream = torch.cuda.current_stream(poses.device).cuda_stream
+    plan = (ctypes.c_int * 5)()
     err = lib.rollout3d_launch(
         *[t.data_ptr() for t in ins], out.data_ptr(), b, p, n,
-        _params(steps, regrasp_every, snapshot_step), stream)
+        _params(steps, regrasp_every, snapshot_step), ctypes.byref(plan),
+        stream)
+    LAST_PLAN.update(zip(("threads_per_rollout", "cluster", "threads",
+                          "max_active_clusters", "shared_bytes"), plan))
     if err != 0:
-        raise RuntimeError(f"rollout3d kernel launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"rollout3d kernel launch failed: CUDA error {err} (launch plan "
+            f"{LAST_PLAN}; the shared memory a block needs grows with the "
+            f"point count, {p} here)")
     KERNEL_LAUNCHES["rollout3d"] += 1
     return out
 

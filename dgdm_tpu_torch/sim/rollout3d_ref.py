@@ -18,12 +18,15 @@ expression keeps the Pallas kernel's operand order; ``rsqrt`` is spelled
 ``1 / sqrt`` so that the CPU and the card round it alike, and the float32
 constants the Pallas kernel folds from scalars are folded here in float32
 (``constants``). Sums over surface points accumulate in float64 and round
-once to float32, here and in the kernel, so that they do not depend on the
-order of the reduction. State and elementwise physics stay float32.
+once to float32, here and in the kernel (``sim/point_sum.py``): that makes
+them independent of the order of the reduction in all but rare cases, and
+``sum_group=G`` reproduces the order of the kernel with G threads a rollout
+exactly. State and elementwise physics stay float32.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -38,6 +41,7 @@ from dgdm_tpu_torch.sim.engine3d import (
     NEWTON_ITERS3,
     V_REST_THRESH,
 )
+from dgdm_tpu_torch.sim.point_sum import point_sum
 from dgdm_tpu_torch.sim.surface_fit import DEG_X, DEG_Z, N_SEG, NZ_SEG, TOT_SEG
 
 LANE = 128
@@ -89,11 +93,10 @@ def _rsqrt(x):
     return 1.0 / torch.sqrt(x)
 
 
-def _rsum(x: torch.Tensor) -> torch.Tensor:
-    """(G, P, L) -> (G, L): the point sum, accumulated in float64 and rounded
-    once (the CUDA kernel sums sequentially, torch's reductions in tree
-    order)."""
-    return torch.sum(x, dim=1, dtype=torch.float64).to(torch.float32)
+def _rsum_of(k):
+    """The point sum (G', P, L) -> (G', L) in the order ``k["sum_group"]``
+    names (``point_sum``)."""
+    return functools.partial(point_sum, dim=1, group=k["sum_group"])
 
 
 def _cholesky_solve(h, grad, n):
@@ -335,7 +338,7 @@ def _normal_step(st, pr: _Pairs, k):
             ox, oy, oz, ql, qr, qdl, qdr, wyn, wyx, cnt_f, cnt_c, cnt_i)
 
 
-def _hub_sum(vn, vt2, w, cap, tgt):
+def _hub_sum(_rsum, vn, vt2, w, cap, tgt):
     res = torch.clamp(tgt - vn, min=0.0)
     e_n = 0.5 * w * res * res
     vt = torch.sqrt(vt2 + 1e-16)
@@ -349,6 +352,7 @@ def _full_solve(geo, ln, u_unc, pr: _Pairs, k):
     """Coupled semi-smooth Newton on the 8-DOF soft-constraint energy
     (pallas3d.py:497-737): u = (vx, vy, vz, ox, oy, oz, qdl, qdr)."""
     e = lambda x: x[:, None, :]                                 # noqa: E731
+    _rsum = _rsum_of(k)
     rx, ry, rz = geo["rx"], geo["ry"], geo["rz"]
     wx, wy, wz = geo["wx"], geo["wy"], geo["wz"]
     w_np, tgt_pn = geo["w_np"], geo["tgt_p"]
@@ -429,8 +433,8 @@ def _full_solve(geo, ln, u_unc, pr: _Pairs, k):
         vtf2 = a_ * a_ + b_ * b_ + c_ * c_
         vtp2 = fx_ * fx_ + pvy_ * pvy_
         return (e_quad(u_)
-                + _hub_sum(vnf_, vtf2, w_nf, capf_, tgt_fn)
-                + _hub_sum(fz_, vtp2, w_np, capp_, tgt_pn))
+                + _hub_sum(_rsum, vnf_, vtf2, w_nf, capf_, tgt_fn)
+                + _hub_sum(_rsum, fz_, vtp2, w_np, capp_, tgt_pn))
 
     u = list(u_unc)
     for _it in range(NEWTON_ITERS3):
@@ -544,6 +548,7 @@ def _cheap_solve(geo, ln, u_unc, pr: _Pairs, k):
     subproblem (pallas3d.py:739-859); the finger DOFs keep their
     unconstrained servo update."""
     e = lambda x: x[:, None, :]                                 # noqa: E731
+    _rsum = _rsum_of(k)
     rx, ry, rz = geo["rx"], geo["ry"], geo["rz"]
     w_np, tgt_pn = geo["w_np"], geo["tgt_p"]
     mass, iw = ln["mass"], ln["iw"]
@@ -631,11 +636,14 @@ def profile_batch_ref(
     steps: int = SIM.steps_3d,
     regrasp_every: int = 0,
     snapshot_step: int = 0,
+    sum_group: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """Returns the 12 raw (B, N) float32 outputs of the kernel (OUT_NAMES):
     final qw, qz, origin dx, dy; validity (1.0 / 0.0); snapshot qw, qz, dx,
-    dy; per-block full-solve, cheap-solve and Newton-iteration counts."""
-    k = constants()
+    dy; per-block full-solve, cheap-solve and Newton-iteration counts.
+    ``sum_group`` = G adds the point sums in the order of the CUDA kernel
+    with G threads a rollout (0: ``torch.sum``'s own; ``point_sum``)."""
+    k = dict(constants(), sum_group=sum_group)
     dt = k["dt"]
     b = points.shape[0]
     n = poses.shape[0]

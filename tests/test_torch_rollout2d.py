@@ -14,48 +14,28 @@ tests/test_torch_rollout2d_cuda.py and chip_smoke.py."""
 from unittest import mock
 
 import numpy as np
-import jax
-import jax.experimental.pallas as pl
 import jax.numpy as jnp
 import pytest
 import torch
 
-from dgdm_tpu.geom.contour import extract_contours
-from dgdm_tpu.geom.fingers import sample_gripper_2d
 from dgdm_tpu.sim import datagen as jdatagen
-from dgdm_tpu.sim import engine2d as jeng
 from dgdm_tpu.sim import pallas2d
 from dgdm_tpu_torch.sim import datagen as tdatagen
-from dgdm_tpu_torch.sim import engine2d as teng
 from dgdm_tpu_torch.sim import rollout2d
 from dgdm_tpu_torch.sim.rollout2d_ref import profile_batch_ref
 from tests.torch_parity import NAMES, assert_k1_parity, golden
-from tests.util_icons import make_icon
+from tests.torch_parity_jax import interpret, k1_scenes
 
 SCHEDULES = {"datagen": (200, 0, 0), "eval": (400, 200, 200)}
 
 
 def _interpret():
-    orig = pl.pallas_call
-
-    def interp(*args, **kw):
-        kw["interpret"] = True
-        return orig(*args, **kw)
-
-    return mock.patch.object(pallas2d.pl, "pallas_call", interp)
+    return interpret(pallas2d)
 
 
 @pytest.fixture(scope="module")
 def scenes():
-    contour = extract_contours(make_icon(3))
-    grips = [sample_gripper_2d(i) for i in range(2)]
-    jst = jax.tree.map(lambda *xs: jnp.stack(xs),
-                       *[jeng.make_scene(*g, contour) for g in grips])
-    tst = tdatagen.stack_scenes([teng.make_scene(*g, contour) for g in grips])
-    n = 128
-    ths = np.linspace(0, 2 * np.pi, n, endpoint=False).astype(np.float32)
-    poses = np.stack([np.zeros(n), np.zeros(n), ths], -1).astype(np.float32)
-    return jst, tst, poses
+    return k1_scenes()
 
 
 @pytest.mark.parametrize("schedule", ["datagen", "eval"])

@@ -39,6 +39,45 @@ def test_cuda_kernel_matches_plain_and_golden(schedule):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["datagen", "eval"])
+def test_cuda_kernel_matches_plain_bitwise(schedule):
+    """Bitwise equal, on all 8 output planes, to the plain version adding
+    its point sums in the order of the kernel's layout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the rollout kernel runs on the card")
+    g = rollout2d.THREADS_PER_ROLLOUT
+    z, arrs, poses = golden()
+    steps, rg, snap = (int(v) for v in z[f"{schedule}_schedule"])
+    arrs, poses = [a.cuda() for a in arrs], poses.cuda()
+    out = rollout2d.rollout_cuda(*arrs, poses, steps, rg, snap)
+    torch.cuda.synchronize()
+    plan = rollout2d.LAST_PLAN
+    assert plan["threads_per_rollout"] == g
+    assert plan["cluster"] * plan["threads"] == 128 * g
+    assert plan["max_active_clusters"] > 0
+    ref = profile_batch_ref(*arrs, poses, steps=steps, regrasp_every=rg,
+                            snapshot_step=snap, sum_group=g)
+    for k, a, b in zip(NAMES, out, ref):
+        assert torch.equal(a, b), f"{k} differs from the plain version"
+
+
+@pytest.mark.cuda
+def test_cuda_launcher_refuses_more_points_than_fit():
+    """100 contour points on 16 threads a rollout: 7 points a lane, 63 KB a block
+    of held geometry. A point count whose geometry does not fit a block's
+    shared memory is refused, not launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the rollout kernel runs on the card")
+    _, arrs, poses = golden()
+    arrs, poses = [a.cuda() for a in arrs], poses.cuda()
+    before = rollout2d.KERNEL_LAUNCHES["rollout2d"]
+    big = arrs[1].repeat(1, 5, 1)
+    with pytest.raises(RuntimeError, match="point count"):
+        rollout2d.rollout_cuda(arrs[0], big, *arrs[2:], poses, 200, 0, 0)
+    assert rollout2d.KERNEL_LAUNCHES["rollout2d"] == before
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_rejects_bad_inputs():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the rollout kernel runs on the card")

@@ -15,22 +15,11 @@ and dpos; tip-over validity equal; full/cheap/iteration counters equal per
 is held to it and to the golden fixture on the card by
 tests/test_torch_rollout3d_cuda.py and chip_smoke.py."""
 
-import os
-from unittest import mock
-
 import numpy as np
-import jax
-import jax.experimental.pallas as pl
-import jax.numpy as jnp
 import pytest
 import torch
 
-from dgdm_tpu.geom import mesh3d as jmesh
-from dgdm_tpu.geom.fingers import sample_gripper_3d
-from dgdm_tpu.sim import engine3d as jeng
-from dgdm_tpu.sim import pallas3d
 from dgdm_tpu_torch.sim import datagen as tdatagen
-from dgdm_tpu_torch.sim import engine3d as teng
 from dgdm_tpu_torch.sim import rollout3d
 from dgdm_tpu_torch.sim.rollout3d_ref import profile_batch_ref
 from tests.torch_parity import (
@@ -39,41 +28,11 @@ from tests.torch_parity import (
     assert_k2_profiles,
     golden3d,
 )
+from tests.torch_parity_jax import k2_pallas as _pallas
+from tests.torch_parity_jax import k2_profiles as _profiles
+from tests.torch_parity_jax import k2_scene_arrays
 
 SCHEDULES = {"datagen": (800, 0, 0), "eval": (1600, 800, 800)}
-MUG = os.path.join(os.path.dirname(__file__), "fixtures", "scanned_objects",
-                   "mug_small", "model.obj")
-
-
-def _interpret():
-    orig = pl.pallas_call
-
-    def interp(*args, **kw):
-        kw["interpret"] = True
-        return orig(*args, **kw)
-
-    return mock.patch.object(pallas3d.pl, "pallas_call", interp)
-
-
-def _profiles(res, mix=None):
-    """(dth, snapshot dpos, final theta, valid, final dpos[, counters]) of
-    either package -> numpy profile dict."""
-    dth, sdpos, fth, valid, fpos = (np.asarray(r) for r in res)
-    out = {"dth": dth, "dpx": sdpos[..., 0], "dpy": sdpos[..., 1],
-           "fth": fth, "fpx": fpos[..., 0], "fpy": fpos[..., 1],
-           "valid": valid}
-    if mix is not None:
-        out.update(zip(("cfull", "ccheap", "citer"),
-                       (np.asarray(m) for m in mix)))
-    return out
-
-
-def _pallas(jarrs, poses, steps, rg, snap):
-    with _interpret():
-        *res, mix = pallas3d.profile_batch_pallas3d(
-            *jarrs, jnp.asarray(poses), steps=steps, regrasp_every=rg,
-            snapshot_step=snap, return_step_mix=True)
-    return _profiles(res, mix)
 
 
 def _port(tarrs, poses, steps, rg, snap):
@@ -85,19 +44,7 @@ def _port(tarrs, poses, steps, rg, snap):
 
 @pytest.fixture(scope="module")
 def scenes():
-    verts, faces = jmesh.load_obj(MUG)
-    grips = [sample_gripper_3d(i) for i in (2, 3)]
-    jp = jeng.object_properties_3d(verts, faces)
-    jst = jax.tree.map(lambda *xs: jnp.stack(xs), *[
-        jeng.make_scene(*g, verts, faces, obj_props=jp) for g in grips])
-    tp = teng.object_properties_3d(verts, faces)
-    tst = tdatagen.stack_scenes([
-        teng.make_scene(*g, verts, faces, obj_props=tp) for g in grips])
-    n = 128
-    ths = np.linspace(0, 2 * np.pi, n, endpoint=False).astype(np.float32)
-    poses = np.stack([np.zeros(n), np.zeros(n), ths], -1).astype(np.float32)
-    return pallas3d.scene_arrays_3d(jst), \
-        rollout3d.scene_arrays_3d(tst, device="cpu"), poses
+    return k2_scene_arrays()
 
 
 @pytest.mark.parametrize("schedule", ["datagen", "eval"])

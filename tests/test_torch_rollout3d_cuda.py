@@ -45,6 +45,43 @@ def test_cuda_kernel_matches_plain_and_golden(schedule):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["datagen", "eval"])
+def test_cuda_kernel_matches_plain_bitwise(schedule):
+    """Bitwise equal, on all 12 output planes, to the plain version adding
+    its point sums in the order of the kernel's layout."""
+    _need_cuda()
+    g = rollout3d.THREADS_PER_ROLLOUT
+    z, arrs, poses = golden3d()
+    steps, rg, snap = (int(v) for v in z[f"{schedule}_schedule"])
+    arrs, poses = [a.cuda() for a in arrs], poses.cuda()
+    out = rollout3d.rollout_cuda(*arrs, poses, steps, rg, snap)
+    torch.cuda.synchronize()
+    plan = rollout3d.LAST_PLAN
+    assert plan["threads_per_rollout"] == g
+    assert plan["cluster"] * plan["threads"] == 128 * g
+    assert plan["max_active_clusters"] > 0
+    ref = profile_batch_ref(*arrs, poses, steps=steps, regrasp_every=rg,
+                            snapshot_step=snap, sum_group=g)
+    for k, a, b in zip(NAMES3, out, ref):
+        assert torch.equal(a, b), f"{k} differs from the plain version"
+
+
+@pytest.mark.cuda
+def test_cuda_launcher_refuses_more_points_than_fit():
+    """256 contact points on 32 threads a rollout: 8 points a lane, 192 KB a block
+    of held geometry. A point count whose geometry does not fit a block's
+    shared memory is refused, not launched."""
+    _need_cuda()
+    _, arrs, poses = golden3d()
+    arrs, poses = [a.cuda() for a in arrs], poses.cuda()
+    before = rollout3d.KERNEL_LAUNCHES["rollout3d"]
+    big = arrs[1].repeat(1, 2, 1)
+    with pytest.raises(RuntimeError, match="point count"):
+        rollout3d.rollout_cuda(arrs[0], big, arrs[2], poses, 200, 0, 0)
+    assert rollout3d.KERNEL_LAUNCHES["rollout3d"] == before
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_rejects_bad_inputs():
     _need_cuda()
     _, arrs, poses = golden3d()
