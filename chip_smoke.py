@@ -52,7 +52,31 @@ Phases, each printing its own lines:
    barrier, almost nothing else): each kernel on a scene whose broad-phase
    bounds put the fingers out of reach, at two depths, the difference over
    the extra steps;
-9. times and the summary.
+9. the data-to-checkpoint path through its entry points, in a temporary
+   directory, the launch counts reset just before and read just after:
+   (a) ``cli.datagen.main``, synthetic icons 0-3 x grippers 0-31 x the
+   9,000-pose grid x 200 steps (one wave of 32 pairs an icon) and a
+   validation set from icon 4: 5 K1 launches of 32 x 9,088; (b)
+   ``cli.datagen3d.main`` on tests/fixtures/scanned_objects (mug_small) x
+   grippers 0-15 in two blocks of 8 x 800 steps: 2 K2 launches of
+   8 x 9,088; (c) ``cli.train_dynamics.main`` on (a)'s shards at full width
+   (ProfileForward2D width 256, 8 trunk layers, object_ch 200), 4 pairs =
+   36,000 rows a step, 2 epochs, bf16; (d) ``cli.train_diffusion.main``,
+   20,480 procedural grippers, batch 2,048, 2 epochs, UNet down_dims
+   (128, 256); (e) ``cli.sample.main`` on (c)'s ``ckpt/best`` and (d)'s
+   ``ckpt/last`` directories: 1 synthetic object, shift_up, B = 16, grid
+   360 x 5 x 5, 8,000-step verification. K1 must have launched >= 6 times
+   and K2 >= 2 in the phase, 5 and 2 of them in the datagen CLIs. The
+   pipelines' wall time is printed beside their summed kernel, bake and
+   write times and the card's busy share; each drain of the 2D pipeline but
+   the last must end while the next wave's kernel still runs (a result
+   copy queued behind that kernel would hold it). Then, outside the counted
+   run, one shard
+   is held bitwise against ``rollout2d.profile_batch`` of its pair, one
+   32-pair wave of K1 is timed alone, and one float32 (TF32 off) and one
+   bfloat16 step of the classifier from the same weights and batch must
+   agree in their loss within 1e-2 relative, and differ;
+10. times and the summary.
 
 Each kernel has one thread layout (K1 16 threads a rollout, K2 32; a
 128-pose group is a cluster of 8 blocks) and holds each thread's per-point
@@ -522,6 +546,210 @@ def phases_3d(dev) -> dict:
     return out
 
 
+def pipeline_line(what: str, out: dict) -> str:
+    """The datagen CLI's summed pipeline figures, printable."""
+    parts = out["kernel_s"] + out["bake_s"] + out["write_s"]
+    return (f"{what}: {out['rollouts']:,} rollouts in {out['seconds']:.2f}s "
+            f"of pipeline ({out['rollouts'] / out['seconds']:,.0f} "
+            f"rollouts/s; CLI wall {out['wall_s']:.2f}s), {out['waves']} "
+            f"waves; summed kernel {out['kernel_s']:.2f}s + bake "
+            f"{out['bake_s']:.2f}s + write {out['write_s']:.2f}s = "
+            f"{parts:.2f}s; card busy {out['kernel_s'] / out['seconds']:.1%} "
+            f"of the wall, idle {out['gap_s']:.3f}s between kernels; host "
+            f"waited {out['wait_s']:.2f}s for results; "
+            f"{out['drains_under_kernel']} drains ended under the next "
+            f"wave's kernel")
+
+
+def phase_train_path(dev, k2_wave_ms: float) -> dict:
+    """Phase 9: datagen CLIs -> trainers -> sample CLI on their checkpoint
+    directories. ``k2_wave_ms``: phase 5's K2 time at the same 8 x 9,088 x
+    800 shape (grippers 0-7 x mug_small), the kernel-alone time of one 3D
+    wave. Returns the numbers for the summary."""
+    import torch
+
+    from dgdm_tpu_torch.cli import datagen as datagen_cli
+    from dgdm_tpu_torch.cli import datagen3d as datagen3d_cli
+    from dgdm_tpu_torch.cli import sample as sample_cli
+    from dgdm_tpu_torch.cli import train_diffusion, train_dynamics
+    from dgdm_tpu_torch.geom.contour import extract_contours, synthetic_icon
+    from dgdm_tpu_torch.geom.fingers import sample_gripper_2d
+    from dgdm_tpu_torch.models.profile2d import ProfileForward2D
+    from dgdm_tpu_torch.sim import datagen, engine2d, rollout2d, rollout3d
+    from dgdm_tpu_torch.train import checkpoints
+    from dgdm_tpu_torch.train.data import DynamicsData, to_device
+    from dgdm_tpu_torch.train.dynamics import DynamicsTrainer
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(*a):
+            return os.path.join(tmp, *a)
+
+        for mod, k in ((rollout2d, "rollout2d"), (rollout3d, "rollout3d")):
+            mod.KERNEL_LAUNCHES[k] = 0
+        t_phase = time.perf_counter()
+        # (a) 2D datagen: 4 training icons and a validation icon
+        a = datagen_cli.main(["--num_objects", "4", "--num_fingers", "32",
+                              "--pairs_per_batch", "32",
+                              "--save_dir", path("data"), "--device", "cuda"])
+        a_val = datagen_cli.main(["--object_start", "4", "--num_objects", "1",
+                                  "--num_fingers", "32",
+                                  "--pairs_per_batch", "32",
+                                  "--save_dir", path("val"),
+                                  "--device", "cuda"])
+        # (b) 3D datagen: mug_small x 16 grippers in two blocks of 8
+        b = datagen3d_cli.main([
+            "--object_dir", os.path.join(ROOT, "tests", "fixtures",
+                                         "scanned_objects"),
+            "--num_objects", "1", "--num_fingers", "16",
+            "--pairs_per_batch", "8", "--save_dir", path("data3d"),
+            "--device", "cuda"])
+        dg_launches = {"rollout2d": rollout2d.KERNEL_LAUNCHES["rollout2d"],
+                       "rollout3d": rollout3d.KERNEL_LAUNCHES["rollout3d"]}
+        # (c) the classifier at full width, bf16, 4 pairs a step
+        c = train_dynamics.main(["--data_dir", path("data"),
+                                 "--test_data_dir", path("val"),
+                                 "--save_dir", path("dyn"),
+                                 "--batch_size", "4", "--num_epochs", "2",
+                                 "--device", "cuda"])
+        # (d) the diffusion UNet
+        d = train_diffusion.main(["--num_fingers", "20480",
+                                  "--batch_size", "2048", "--num_epochs", "2",
+                                  "--save_dir", path("diff"),
+                                  "--device", "cuda"])
+        # (e) the design loop on the two checkpoint directories
+        t0 = time.perf_counter()
+        e = sample_cli.main([
+            "--diffusion_checkpoint_path", path("diff", "ckpt", "last"),
+            "--checkpoint_path", path("dyn", "ckpt", "best"),
+            "--save_dir", path("guided"), "--batch_size", "16",
+            "--grid_size", "360", "--num_pos", "5",
+            "--num_inference_steps", "5", "--num_test_objects", "1",
+            "--objectives", "shift_up", "--device", "cuda"])
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        phase_s = time.perf_counter() - t_phase
+        launches = {"rollout2d": rollout2d.KERNEL_LAUNCHES["rollout2d"],
+                    "rollout3d": rollout3d.KERNEL_LAUNCHES["rollout3d"]}
+        check(launches["rollout2d"] >= 6 and launches["rollout3d"] >= 2,
+              f"data-to-checkpoint path launches {launches}: K1 >= 6 and "
+              f"K2 >= 2 expected")
+        check(dg_launches == {"rollout2d": 5, "rollout3d": 2},
+              f"datagen CLIs' launches {dg_launches}: 5 K1 waves and 2 K2 "
+              f"blocks expected")
+        shards = sorted(os.listdir(path("data")))
+        check(len(shards) == 128 and len(os.listdir(path("val"))) == 32,
+              f"128 + 32 2D shards, found {len(shards)}")
+        check(b["pairs"] == 16, f"3D pairs {b['pairs']}")
+        check(len(os.listdir(path("data3d"))) == b["pairs_valid"],
+              "one 3D shard a kept pair")
+        for k in ("first_loss", "last_loss", "best_val_loss"):
+            check(np.isfinite(c[k]), f"train_dynamics {k} {c[k]}")
+        for k in ("first_loss", "last_loss"):
+            check(np.isfinite(d[k]), f"train_diffusion {k} {d[k]}")
+        smp = np.load(path("guided", f"samples_shift_up_"
+                           f"{next(iter(e['shift_up']['objects']))}.npy"))
+        check(smp.shape == (16, 14, 1) and np.isfinite(smp).all(),
+              "finite (16, 14, 1) samples from the trained checkpoints")
+
+        print(pipeline_line("(a) cli.datagen, 4 icons x 32 grippers", a),
+              flush=True)
+        check(a["seconds"] < a["kernel_s"] + a["bake_s"] + a["write_s"],
+              "2D datagen pipeline: no overlap of host and card work")
+        # the stream-order trap: a wave's result copy queued behind the next
+        # wave's kernel makes its drain end only after that kernel, and the
+        # next bake then runs while the card idles. One gripper block of 4
+        # icons: each of the first 3 drains must end under the next kernel.
+        check(a["drains_under_kernel"] == a["waves"] - 1,
+              f"2D datagen pipeline: {a['drains_under_kernel']} of "
+              f"{a['waves'] - 1} drains ended while the next kernel ran")
+        print(pipeline_line("    validation icon 4 x 32 grippers", a_val),
+              flush=True)
+        print(pipeline_line("(b) cli.datagen3d, mug_small x 16 grippers", b)
+              + f"; gave up on {b['pairs'] - b['pairs_valid']} of "
+              f"{b['pairs']} pairs; K2 alone on one such wave "
+              f"{k2_wave_ms:.1f} ms (phase 5)", flush=True)
+        print(f"(c) cli.train_dynamics: {c['steps']} steps of 36,000 rows, "
+              f"{c['rows_per_second']:,.0f} rows/s over the iterations "
+              f"(StepTimer EWMA {c['rows_per_second_ewma']:,.0f}), loss "
+              f"{c['first_loss']:.4f} -> {c['last_loss']:.4f}, best val "
+              f"{c['best_val_loss']:.4f}; host batch loading "
+              f"{c['data_s']:.2f}s of the iterations' {c['loop_s']:.2f}s "
+              f"({c['train_s']:.2f}s with validation and checkpoints)",
+              flush=True)
+        print(f"(d) cli.train_diffusion: {d['steps']} steps of 2,048, "
+              f"{d['grippers_per_second']:,.0f} grippers/s over the "
+              f"iterations (StepTimer EWMA "
+              f"{d['grippers_per_second_ewma']:,.0f}), loss "
+              f"{d['first_loss']:.4f} -> {d['last_loss']:.4f}; batch "
+              f"gathering {d['data_s']:.3f}s of the iterations' "
+              f"{d['loop_s']:.2f}s ({d['train_s']:.2f}s with validation and "
+              f"checkpoints); the procedural set built and uploaded once in "
+              f"{d['setup_s']:.2f}s", flush=True)
+        print(f"(e) cli.sample on ckpt/best + ckpt/last: {sample_s:.1f}s "
+              f"(verification {e['verification']['seconds']:.1f}s); phase "
+              f"{phase_s:.1f}s; kernel launches {launches} ({dg_launches} "
+              f"of them by the datagen CLIs)", flush=True)
+
+        # ---- outside the counted run: spot check, K1 alone, bf16 ---------
+        rec = np.load(path("data", "0_5.npz"), allow_pickle=True)["arr_0"] \
+            .item()
+        contour = extract_contours(synthetic_icon(0))
+        one = datagen.stack_scenes([engine2d.make_scene(
+            *sample_gripper_2d(5), contour)])
+        poses = torch.as_tensor(datagen.pad_poses(engine2d.pose_grid()),
+                                device=dev)
+        dth, dpos, _, _ = rollout2d.profile_batch(
+            *rollout2d.scene_arrays(one, device=dev), poses)
+        check(np.array_equal(rec["delta_theta"], dth[0, :9000].cpu().numpy())
+              and np.array_equal(rec["delta_pos"][:, :2],
+                                 dpos[0, :9000].cpu().numpy()),
+              "shard 0_5 differs from rollout2d.profile_batch of its pair")
+        check(float(np.abs(rec["delta_theta"]).max()) > 1e-2,
+              "shard 0_5: nothing moved")
+        wave = rollout2d.scene_arrays(datagen.stack_scenes([
+            engine2d.make_scene(*sample_gripper_2d(i), contour)
+            for i in range(32)]), device=dev)
+        k1_wave_ms, _ = timed_cuda(lambda: rollout2d.rollout(*wave, poses),
+                                   reps=2)
+        print(f"  shard 0_5 bitwise equal to rollout2d.profile_batch of its "
+              f"pair; K1 alone on one 32-pair wave {k1_wave_ms:.1f} ms "
+              f"({32 * 9000 / k1_wave_ms * 1e3:,.0f} rollouts/s)", flush=True)
+
+        batch = to_device(next(DynamicsData(path("data")).batches(
+            4, np.random.RandomState(0))), dev)
+        losses = {}
+        # the training CLIs allow TF32; the float32 step must not use it
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        for bf16 in (False, True):
+            tr = DynamicsTrainer(ProfileForward2D(), bf16=bf16, device=dev)
+            checkpoints.restore(path("dyn", "ckpt", "last"), tr)
+            g = torch.Generator(device=dev).manual_seed(7)
+            t = torch.randint(0, 15, (batch["ctrl"].shape[0],), generator=g,
+                              device=dev)
+            noise = torch.randn(batch["ctrl"].shape, generator=g, device=dev)
+            losses[bf16] = float(tr.step(batch, t, noise)["loss"])
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        rel = abs(losses[True] - losses[False]) / abs(losses[False])
+        print(f"  one classifier step from ckpt/last: loss float32 "
+              f"{losses[False]:.6f}, bfloat16 {losses[True]:.6f} "
+              f"(relative {rel:.2e})", flush=True)
+        check(0 < rel < 1e-2, f"bf16 vs f32 loss relative {rel}: within "
+              f"1e-2, and not 0 (autocast must have taken effect)")
+    out.update(datagen_2d=a, datagen_2d_val=a_val, datagen_3d=b,
+               train_dynamics=c, train_diffusion=d, sample_s=sample_s,
+               verification_s=e["verification"]["seconds"],
+               phase_s=phase_s, launches=launches, dg_launches=dg_launches,
+               k1_wave_ms=k1_wave_ms,
+               k2_wave_ms=k2_wave_ms, bf16_loss=losses[True],
+               f32_loss=losses[False])
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -538,6 +766,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the training CLIs' metric sink mirrors to wandb where it is installed;
+    # a measurement run writes nothing outside its temporary directories
+    os.environ["WANDB_MODE"] = "disabled"
     dev = torch.device("cuda")
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
@@ -775,7 +1006,10 @@ def main() -> int:
         print(f"{what}: {new:.1f} ms/call now, {old:.1f} ms with one thread "
               f"a rollout (earlier row): {old / new:.2f}x", flush=True)
 
-    # ---- 9. summary -------------------------------------------------------
+    # ---- 9. the data-to-checkpoint path ----------------------------------
+    train = phase_train_path(dev, k2["datagen"]["kernel_ms"])
+
+    # ---- 10. summary ------------------------------------------------------
     summary = {
         "card": card, "build_s": build_s, "registers": registers,
         "travel_k1": k1_travel,
@@ -795,7 +1029,8 @@ def main() -> int:
         "design_loop_s": design_s, "launches": launches,
         "design_call": {"seconds": call_s, "kernel_ms": call_k_ms,
                         "full_steps_per_block": call_full},
-        "k2": k2, "seconds": time.perf_counter() - t_start,
+        "k2": k2, "train_path": train,
+        "seconds": time.perf_counter() - t_start,
     }
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
@@ -815,6 +1050,9 @@ def main() -> int:
         "datagen_ms": dg_ms, "datagen_plain_ms": dg_plain_ms,
         "datagen_bound_ms": dg_bound,
         "travel_us_per_step": k1_travel["us_per_step"],
+        "datagen_cli_launches": train["dg_launches"]["rollout2d"],
+        "train_path_launches": train["launches"]["rollout2d"],
+        "datagen_cli_wave_ms": train["k1_wave_ms"],
     }, {
         "name": "rollout3d", "route": "cuda",
         "source": "dgdm_tpu_torch/csrc/rollout3d.cu",
@@ -838,6 +1076,8 @@ def main() -> int:
         "datagen_ms": k2["datagen"]["kernel_ms"],
         "datagen_plain_ms": k2["datagen"]["plain_ms"],
         "datagen_bound_ms": k2["datagen"]["bound_ms"],
+        "datagen_cli_launches": train["dg_launches"]["rollout3d"],
+        "train_path_launches": train["launches"]["rollout3d"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

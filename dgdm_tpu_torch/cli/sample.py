@@ -8,9 +8,11 @@ through ``sim/rollout2d.py``; ``--fingers_3d``: 32,000 steps through
 ``sim/rollout3d.py``), and writes per-objective best-gripper tables to
 ``guided_report.json``.
 
-Checkpoints are the ``.npz`` files of ``models/convert.py`` (a flax tree
-carried across, or a state_dict saved by the port). ``--render_video``
-waits for a later slice of the port.
+Checkpoints are the directories that the training CLIs write
+(``ckpt/best``, ``ckpt/last``, ...; ``train/checkpoints.py``) or the
+``.npz`` files of ``models/convert.py`` (a flax tree carried across, or a
+state_dict saved by the port). ``--render_video`` waits for a later slice of
+the port.
 
 Examples:
     python -m dgdm_tpu_torch.cli.sample --diffusion_checkpoint_path unet.npz \\

@@ -26,7 +26,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_decay", type=float, default=0.0)
     p.add_argument("--patience", type=int, default=500)
     p.add_argument("--checkpoint_path", type=str, default=None,
-                   help="dynamics model weights (.npz from models/convert.py)")
+                   help="dynamics model: a checkpoint directory of "
+                        "cli/train_dynamics (ckpt/best, ckpt/last, "
+                        "ckpt/step_<n>) or a weights .npz from "
+                        "models/convert.py (sample CLI)")
     p.add_argument("--save_dir", type=str, default="runs/out")
     p.add_argument("--wandb_id", type=str, default=None)
     p.add_argument("--data_dir", type=str, default="")
@@ -44,8 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ema_power", type=float, default=0.85)
     p.add_argument("--object_max_num_vertices", type=int, default=100)
     p.add_argument("--diffusion_checkpoint_path", type=str, default=None,
-                   help="diffusion UNet (EMA) weights (.npz from "
-                        "models/convert.py)")
+                   help="diffusion UNet: a checkpoint directory of "
+                        "cli/train_diffusion (ckpt/last, ckpt/best_e<n>, "
+                        "ckpt/step_<n>) or an (EMA) weights .npz from "
+                        "models/convert.py (sample CLI)")
     p.add_argument("--classifier_guidance", action="store_true")
     p.add_argument("--fingers_3d", action="store_true")
     p.add_argument("--render_video", action="store_true")
@@ -69,8 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="2D dynamics: double the dataset with the exact "
                         "y-axis mirror symmetry")
     p.add_argument("--profile_dir", type=str, default="",
-                   help="capture a profiler trace of steady-state train "
-                        "steps 3-8 into this directory; empty disables")
+                   help="capture a torch.profiler trace of steady-state "
+                        "train steps 3-8 into this directory; empty "
+                        "disables")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the run: 'cuda' (hand-written "
                         "kernels) or 'cpu' (their plain PyTorch versions)")

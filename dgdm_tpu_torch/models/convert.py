@@ -17,12 +17,16 @@ layout changes:
 
 ``flax_unet`` / ``flax_profile2d`` / ``flax_profile3d`` invert the maps.
 ``save_npz`` writes a state_dict plus the constructor arguments;
-``load_model`` rebuilds the module from such a file.
+``load_model`` rebuilds the module from such a file or from a training
+checkpoint directory (``train/checkpoints.py``), which holds one as
+``model.npz``. ``params_tree_to_torch`` carries any tree laid out like a
+model's params (Adam's moments too) with the same rules.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 from typing import Callable, Dict, Tuple
 
@@ -163,6 +167,17 @@ def unet_state_dict(params) -> Dict[str, np.ndarray]:
     return _to_torch(flatten(params), "params", _UNET_RULES)
 
 
+RULES = {"unet": _UNET_RULES, "profile2d": _PROFILE_RULES,
+         "profile3d": _PROFILE3D_RULES}
+
+
+def params_tree_to_torch(tree, kind: str) -> Dict[str, np.ndarray]:
+    """A tree laid out like a ``kind`` model's flax ``params`` (the params,
+    or Adam's first or second moments of them) -> port parameter names
+    with the same layout changes."""
+    return _to_torch(flatten(tree), "params", RULES[kind])
+
+
 def _variables_to_torch(variables, rules) -> Dict[str, np.ndarray]:
     sd = _to_torch(flatten(variables["params"]), "params", rules)
     sd.update(_to_torch(flatten(variables["batch_stats"]), "batch_stats",
@@ -220,9 +235,20 @@ MODELS = {"unet": ConditionalUnet1D, "profile2d": ProfileForward2D,
           "profile3d": ProfileForward3D}
 
 
+def kind_of(model: torch.nn.Module) -> str:
+    """The key of ``MODELS`` that built ``model``."""
+    kinds = [k for k, cls in MODELS.items() if type(model) is cls]
+    if not kinds:
+        raise TypeError(f"no model kind for {type(model).__name__}")
+    return kinds[0]
+
+
 def load_model(path: str, kind: str, **defaults) -> torch.nn.Module:
     """Rebuild a ``kind`` module (a key of ``MODELS``) from ``save_npz``
-    output; constructor arguments stored in the file override ``defaults``."""
+    output, or from a training checkpoint directory (its ``model.npz``);
+    constructor arguments stored in the file override ``defaults``."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "model.npz")
     sd, config = load_npz(path)
     model = MODELS[kind](**{**defaults, **config})
     model.load_state_dict(sd)

@@ -17,6 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dgdm_tpu_torch.models.profile2d import BatchNorm
+
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (..., N, 3), b (..., M, 3) -> (..., N, M)."""
@@ -71,7 +73,7 @@ class SetAbstraction(nn.Module):
             [nn.Linear(a, b) for a, b in zip(chans[:-1], chans[1:])])
         # flax BatchNorm(momentum=0.9) == torch momentum 0.1; eps 1e-5 both
         self.bns = nn.ModuleList(
-            [nn.BatchNorm1d(c, momentum=0.1, eps=1e-5) for c in mlp])
+            [BatchNorm(c, momentum=0.1, eps=1e-5) for c in mlp])
 
     def forward(self, xyz, feats):
         """xyz (B, N, 3); feats (B, N, C) or None -> (new_xyz, new_feats)."""

@@ -6,8 +6,10 @@ sinusoidal timestep embedding through a SiLU MLP, then a Linear + BatchNorm +
 ReLU trunk and a linear head predicting the whitened (dtheta, dx, dy).
 
 ``encode_object``/``trunk`` are separate so guidance encodes each object
-once. BatchNorm: flax ``momentum=0.9`` is torch ``momentum=0.1``; in
-inference (``eval()``) only the running statistics matter.
+once. BatchNorm is ``BatchNorm``, which trains as flax's does. The head runs
+outside any autocast region, as flax keeps it in float32 when the rest
+computes in bfloat16. ``config`` holds the constructor arguments (what
+``models/convert.py`` stores beside the weights).
 """
 
 from __future__ import annotations
@@ -21,6 +23,34 @@ from dgdm_tpu_torch.models.embeddings import (
     nerf_embed_dim,
     timestep_embedding,
 )
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """``torch.nn.BatchNorm1d`` over the last axis of (rows, C), trained as
+    ``flax.linen.BatchNorm`` is: the batch statistics are E[x] and the
+    biased E[x^2] - E[x]^2 (clipped at 0), and both running statistics move
+    toward them with flax's momentum 0.9 (torch's 0.1). torch's own train
+    mode would move the running variance toward the unbiased variance,
+    n/(n-1) times larger. The statistics come from ``torch.var_mean`` in
+    float32 (centred, with an order of summation that keeps it within
+    float32 rounding of the exact value: a plain float32 sum over the
+    131,072 rows of a PointNet++ BatchNorm is off by up to ~1e-4). In eval
+    mode it is torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        var, mean = torch.var_mean(xf, dim=0, unbiased=False)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean
+                                    + self.momentum * mean)
+            self.running_var.copy_(keep * self.running_var
+                                   + self.momentum * var)
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
 
 
 class MLP2(nn.Module):
@@ -48,6 +78,9 @@ class ProfileForward2D(nn.Module):
                  object_ch: int = 200, output_ch: int = 3, multires: int = 4,
                  num_trunk: int = 8):
         super().__init__()
+        self.config = dict(width=width, params_ch=params_ch,
+                           object_ch=object_ch, output_ch=output_ch,
+                           multires=multires, num_trunk=num_trunk)
         w = width
         self.width, self.multires = w, multires
         self.gripper_encoder = MLP2(params_ch, w, "relu")
@@ -60,8 +93,7 @@ class ProfileForward2D(nn.Module):
             [nn.Linear(trunk_in if i == 0 else w, w) for i in range(num_trunk)])
         # flax BatchNorm(momentum=0.9) == torch momentum 0.1; eps 1e-5 both
         self.trunk_bns = nn.ModuleList(
-            [nn.BatchNorm1d(w, momentum=0.1, eps=1e-5)
-             for _ in range(num_trunk)])
+            [BatchNorm(w, momentum=0.1, eps=1e-5) for _ in range(num_trunk)])
         self.head = nn.Linear(w, output_ch)
 
     def forward(self, ctrl, ori, pos, t, obj):
@@ -82,4 +114,10 @@ class ProfileForward2D(nn.Module):
         x = torch.cat([obj_feat, x_ctrl, x_ori, x_pos, t_emb], dim=-1)
         for dense, bn in zip(self.trunk_layers, self.trunk_bns):
             x = F.relu(bn(dense(x)))
-        return self.head(x)
+        return head_f32(self.head, x)
+
+
+def head_f32(head: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The output layer in float32, outside any autocast region."""
+    with torch.autocast(x.device.type, enabled=False):
+        return head(x.float())

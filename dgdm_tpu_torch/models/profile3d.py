@@ -24,7 +24,7 @@ from dgdm_tpu_torch.models.embeddings import (
     timestep_embedding,
 )
 from dgdm_tpu_torch.models.pointnet2 import PointNet2
-from dgdm_tpu_torch.models.profile2d import MLP2
+from dgdm_tpu_torch.models.profile2d import MLP2, BatchNorm, head_f32
 
 
 class ProfileForward3D(nn.Module):
@@ -37,6 +37,8 @@ class ProfileForward3D(nn.Module):
     def __init__(self, width: int = 256, params_ch: int = 42,
                  output_ch: int = 3, multires: int = 4):
         super().__init__()
+        self.config = dict(width=width, params_ch=params_ch,
+                           output_ch=output_ch, multires=multires)
         w = width
         self.width, self.multires = w, multires
         self.gripper_encoder = MLP2(params_ch, w, "relu")
@@ -49,7 +51,7 @@ class ProfileForward3D(nn.Module):
             [nn.Linear(a, b) for a, b in zip(ins, widths)])
         # flax BatchNorm(momentum=0.9) == torch momentum 0.1; eps 1e-5 both
         self.trunk_bns = nn.ModuleList(
-            [nn.BatchNorm1d(b, momentum=0.1, eps=1e-5) for b in widths])
+            [BatchNorm(b, momentum=0.1, eps=1e-5) for b in widths])
         self.head = nn.Linear(w, output_ch)
 
     def forward(self, ctrl, ori, pos, t, obj):
@@ -69,4 +71,4 @@ class ProfileForward3D(nn.Module):
         x = torch.cat([obj_feat, x_ctrl, x_ori, x_pos, t_emb], dim=-1)
         for dense, bn in zip(self.trunk_layers, self.trunk_bns):
             x = F.relu(bn(dense(x)))
-        return self.head(x)
+        return head_f32(self.head, x)

@@ -64,6 +64,9 @@ class ConditionalUnet1D(nn.Module):
                  diffusion_step_embed_dim: int = 32, kernel_size: int = 5,
                  n_groups: int = 8):
         super().__init__()
+        self.config = dict(input_dim=input_dim, down_dims=list(down_dims),
+                           diffusion_step_embed_dim=diffusion_step_embed_dim,
+                           kernel_size=kernel_size, n_groups=n_groups)
         dsed = diffusion_step_embed_dim
         self.dsed = dsed
         self.time_in = nn.Linear(dsed, dsed * 4)

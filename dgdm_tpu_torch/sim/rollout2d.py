@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from dgdm_tpu_torch.core.config import GRIPPER_2D, SIM
+from dgdm_tpu_torch.core.transfer import upload
 from dgdm_tpu_torch.sim import engine2d
 from dgdm_tpu_torch.sim.cuda_lib import CudaLibrary
 from dgdm_tpu_torch.sim.rollout2d_ref import (
@@ -217,5 +218,5 @@ def scene_arrays(scenes, calib: Optional[engine2d.Calib] = None,
     r_max = np.sqrt((rel**2).sum(-1)).max(axis=1)
     scal[:, 0, 14] = (-g.jaw_offset + g.width) + fmax_l + r_max   # A
     scal[:, 0, 15] = g.jaw_offset + fmin_r - r_max                 # B
-    return tuple(torch.as_tensor(a).to(device)
+    return tuple(upload(a, device)
                  for a in (coefs, scenes.contour.numpy(), support, scal))

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from dgdm_tpu_torch.core.config import GRIPPER_3D, SIM
+from dgdm_tpu_torch.core.transfer import upload
 from dgdm_tpu_torch.sim import engine3d
 from dgdm_tpu_torch.sim.cuda_lib import CudaLibrary
 from dgdm_tpu_torch.sim.engine2d import Calib
@@ -258,6 +259,6 @@ def scene_arrays_3d(scenes, calib: Optional[Calib] = None,
     vals3 = np.einsum("bfnc,tsc->bfnts", cflat, basis)
     scal[:, 0, 25] = vals3[:, 0].max(axis=(1, 2, 3)) + 1e-3   # left max
     scal[:, 0, 26] = vals3[:, 1].min(axis=(1, 2, 3)) - 1e-3   # right min
-    return tuple(torch.as_tensor(a).to(device)
+    return tuple(upload(a, device)
                  for a in (coefs, points, scal))
 
