@@ -76,12 +76,35 @@ Phases, each printing its own lines:
    32-pair wave of K1 is timed alone, and one float32 (TF32 off) and one
    bfloat16 step of the classifier from the same weights and batch must
    agree in their loss within 1e-2 relative, and differ;
-10. times and the summary.
+10. the JAX package's other solver configuration (``engine2d.SOLVER =
+    "jacobi"``, restored after; phases 2-9 set "newton"): (a) K1's Jacobi
+    instantiation at the datagen shape (8 x 9,088 x 200, icon 0, the
+    FITTED_2D calibration), bitwise against its plain version and within the
+    bars of tests/fixtures/rollout2d_jacobi_golden.npz, its bound from
+    ``k1_jacobi_flops`` and its own step counters; then, launch counts reset
+    just before and read just after, (b) the verification shape through
+    ``sim_eval_batch_2d`` (16 x 360 x 8,000, regrasp and snapshot at 200) and
+    (c) gradient design on the card (``design_gradient_2d`` with
+    scripts/demo_grad_design.py's gripper, contour, objective and
+    num_rot 36, num_pairs 4, holdout_draws 8; depth cut to 10 iterations,
+    the demo runs 50): finite history and held-out values, iteration 0's
+    candidate objectives within 2e-3 of the same call on the CPU, 2
+    ``method="backprop"`` iterations with finite non-zero gradients, and the
+    start and designed grippers on 96 orientations through the pure engine
+    and K1 under both solvers. Outside the counted run: the 96-orientation
+    K1 outputs of both solvers bitwise against their plain versions (the
+    main path's own call, 2 x 128 x 200), (b)'s kernel timed alone, its
+    200-step snapshot bitwise against the kernel's own 200-step squeeze, the
+    verify shape with its depth cut to 1,000 steps (regrasp and snapshot at
+    200) bitwise against the plain version, and the pure engine's cost a
+    step (ms, kernels, the card's busy share from ``torch.profiler``);
+11. times and the summary.
 
 Each kernel has one thread layout (K1 16 threads a rollout, K2 32; a
 128-pose group is a cluster of 8 blocks) and holds each thread's per-point
 contact geometry in shared memory; the layout of the launch is printed per
-shape.
+shape. K1 is built in two instantiations (Newton, Jacobi); ``ptxas`` must
+report 0 bytes of spills for each.
 
 It then prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero, without that line, if
@@ -117,6 +140,20 @@ MUG = os.path.join(ROOT, "tests", "fixtures", "scanned_objects", "mug_small",
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+
+
+class PhaseClock:
+    """Prints the seconds of each phase as it ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.seconds: dict = {}
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t
+        print(f"phase {name}: {now - self.t:.1f}s", flush=True)
+        self.t = now
 
 
 def check(cond: bool, msg: str) -> None:
@@ -170,14 +207,17 @@ def timed_cuda(fn, reps: int, warm: bool = True):
     return start.elapsed_time(end) / reps, out
 
 
-def ptxas_report(name: str, lib) -> int:
-    """Print registers and spill bytes of the kernel in the log of the build
-    this run made (``nvcc -Xptxas -v``); spills must be 0. Returns the
-    registers a thread."""
+def ptxas_report(name: str, lib, n_kernels: int = 1) -> dict:
+    """Print registers and spill bytes of each kernel in the log of the
+    build this run made (``nvcc -Xptxas -v``); spills must be 0. Returns
+    the registers a thread of each entry function, by its mangled name."""
     import re
 
-    regs = []
+    regs, entries = [], []
     for line in lib.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entries.append(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -187,10 +227,12 @@ def ptxas_report(name: str, lib) -> int:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             regs.append(int(m.group(1)))
-            print(f"  {name}: {line.strip()}", flush=True)
-    check(len(regs) == 1, f"{name}: expected one kernel in the build log, "
-          f"found registers {regs}")
-    return regs[0]
+            print(f"  {name} ({entries[-1] if entries else '?'}): "
+                  f"{line.strip()}", flush=True)
+    check(len(regs) == n_kernels == len(entries),
+          f"{name}: expected {n_kernels} kernel(s) in the build log, found "
+          f"entries {entries}, registers {regs}")
+    return dict(zip(entries, regs))
 
 
 def bitwise(what: str, res, ref, planes) -> None:
@@ -301,7 +343,7 @@ def bound_ms(flops: float, nbytes: float):
                                        else "bytes")
 
 
-def phases_3d(dev) -> dict:
+def phases_3d(dev, clock: PhaseClock) -> dict:
     """Phases 5-7: kernel K2 at the datagen and verification shapes, and the
     3D design loop. Returns the numbers for the summary."""
     import torch
@@ -377,6 +419,7 @@ def phases_3d(dev) -> dict:
                           do["ccheap"][:, ::128].mean()),
                       "golden": gold_stats}
 
+    clock.done("5")
     # ---- 6. K2 at the verification shape ----------------------------------
     # host work of one verification call (object properties, scene builds
     # of 16 new grippers, their upload), timed beside K2
@@ -469,6 +512,7 @@ def phases_3d(dev) -> dict:
     out["max_abs_err"] = max(v["max_abs_err"] for st in (dg_stats, se_stats)
                              for v in st.values())
 
+    clock.done("6")
     # ---- 7. the 3D design loop through cli.sample.main --------------------
     torch.manual_seed(0)
     with tempfile.TemporaryDirectory() as tmp:
@@ -536,6 +580,7 @@ def phases_3d(dev) -> dict:
           f"mug_small): {call_s:.2f}s on the host clock, K2 "
           f"{call_k_ms:.0f} ms of it; full-solve steps per block "
           f"{call_full:.0f} of 32,000", flush=True)
+    clock.done("7")
     out["travel"] = travel_step_us(rollout3d, arrs16, eposes, (25, 26),
                                    (9, 10))
     out.update(design_loop_s=design_s, launches=launches,
@@ -543,6 +588,363 @@ def phases_3d(dev) -> dict:
                verification_s=report["verification"]["seconds"],
                design_call={"seconds": call_s, "kernel_ms": call_k_ms,
                             "full_steps_per_block": call_full})
+    return out
+
+
+def k1_jacobi_flops(p: int, s: int, steps: int, cfull, ccheap) -> float:
+    """Float32 operations the Jacobi rollouts of this run need, counted by
+    hand from ``jacobi_step`` of dgdm_tpu_torch/sim/rollout2d_ref.py, per
+    lane: a full step (every normal Jacobi step) costs the contact geometry
+    of every point (~110) and its elastic impulse under the energy clamp
+    (~79 over three passes), then 6 iterations of ~55 a contour point and
+    ~59 a support point (planar friction ~45, torsion ~14), and ~300 of
+    lane-level updates and point-sum additions; a travel step the servo
+    update (15); every step the gate (20). ``cfull``/``ccheap`` are this
+    run's per-lane counts (ccheap is 0 for Jacobi)."""
+    full = p * 189 + 6 * (p * 55 + s * 59) + 300
+    cf, cc = np.asarray(cfull, np.float64), np.asarray(ccheap, np.float64)
+    travel = steps - cf - cc
+    return float(np.sum(cf * full + travel * 15 + steps * 20))
+
+
+def demo_contour() -> np.ndarray:
+    """The object of scripts/demo_grad_design.py (100 points)."""
+    ang = np.linspace(0, 2 * np.pi, 100, endpoint=False)
+    rad = 0.035 * (1 + 0.2 * np.sin(3 * ang) + 0.08 * np.cos(5 * ang))
+    return np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1)
+
+
+def engine_step_cost(dev, scene, y) -> dict:
+    """The pure engine's cost on the card at one smoothed iteration's batch
+    (8 candidates x 36 orientations), under the current engine2d.SOLVER: ms
+    a step, and from a torch.profiler window of 10 steps the CUDA kernels
+    a step and the card's busy share (their summed device time over the
+    window's wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dgdm_tpu_torch.design import graddesign
+    from dgdm_tpu_torch.sim import engine2d
+
+    xy = torch.zeros(8, 36, 2, device=dev)
+    cands = y.expand(8, 2, 7)
+    kw = dict(objective="rotate_clockwise")
+    ms, _ = timed_cuda(lambda: graddesign.mean_objective(
+        cands, scene, xy, steps=50, **kw), reps=1)
+    sc = graddesign.scene_with_y(scene, cands[:, 0, None], cands[:, 1, None])
+    th = torch.linspace(0, 2 * np.pi, 37, device=dev)[:36]
+    pose = torch.cat([xy, th.expand(8, 36)[..., None]], -1)
+    state = engine2d.init_state(sc, pose)
+    ctrl = torch.tensor([0.2, -0.2], device=dev)
+    for _ in range(150):        # into the squeeze, where the fingers touch
+        state = engine2d.step(sc, state, ctrl)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            state = engine2d.step(sc, state, ctrl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        # the kernels themselves (as scripts/profile_train_step.py reads
+        # them)
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        busy_us += dev_us
+        launches += e.count
+    return {"ms_per_step": ms / 50, "kernels_per_step": launches / 10,
+            "busy_share": busy_us / (1e6 * wall) if busy_us else None,
+            "profiled_ms_per_step": 1e3 * wall / 10}
+
+
+def phase_jacobi_design(dev) -> dict:
+    """Phase 10, under engine2d.SOLVER = "jacobi" (restored after): (a) K1's
+    Jacobi branch at the datagen shape, held to its plain version and its
+    golden fixture; (b) at the verification shape through
+    ``sim_eval_batch_2d``; (c) gradient design on the card. The launch
+    counts are reset before (b) and read after (c). Returns the numbers for
+    the summary."""
+    import torch
+
+    from dgdm_tpu_torch.core.config import GRIPPER_2D, SIM
+    from dgdm_tpu_torch.design import graddesign
+    from dgdm_tpu_torch.eval.simeval import sim_eval_batch_2d
+    from dgdm_tpu_torch.geom.contour import extract_contours, synthetic_icon
+    from dgdm_tpu_torch.geom.fingers import (denormalize_y, normalize_y,
+                                             sample_gripper_2d)
+    from dgdm_tpu_torch.sim import datagen, engine2d, rollout2d
+    from dgdm_tpu_torch.sim.rollout2d_ref import profile_batch_ref
+    from dgdm_tpu_torch.sim.types import to_device
+
+    out: dict = {}
+    old_solver = engine2d.SOLVER
+    engine2d.SOLVER = "jacobi"
+    try:
+        t_phase = time.perf_counter()
+        # ---- (a) datagen shape: 8 x 9,088 x 200, icon 0, FITTED_2D -------
+        contour = extract_contours(synthetic_icon(0))
+        arrs8 = rollout2d.scene_arrays(datagen.stack_scenes(
+            [engine2d.make_scene(*sample_gripper_2d(i), contour)
+             for i in range(8)]), device=dev)
+        check(float(arrs8[3][0, 0, 9])
+              == float(np.float32(engine2d.FITTED_2D["k_contact"])),
+              "the Jacobi calibration (FITTED_2D) in the scalar slots")
+        poses = torch.as_tensor(datagen.pad_poses(engine2d.pose_grid()),
+                                device=dev)
+        dg_ms, res = timed_cuda(lambda: rollout2d.rollout(*arrs8, poses),
+                                reps=5)
+        plan = chosen(rollout2d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = profile_batch_ref(*arrs8, poses,
+                                sum_group=rollout2d.THREADS_PER_ROLLOUT)
+        torch.cuda.synchronize()
+        dg_plain_ms = 1e3 * (time.perf_counter() - t0)
+        bitwise("K1 Jacobi datagen 8x9088x200", res, ref, range(8))
+        res_np = {k: v.cpu().numpy() for k, v in zip(NAMES, res)}
+        check((res_np["ccheap"] == 0).all(), "Jacobi: no cheap steps")
+        stats = parity(res_np, {k: v.cpu().numpy()
+                                for k, v in zip(NAMES, ref)},
+                       "Jacobi datagen 8x9088x200, kernel vs plain")
+        s_ = arrs8[2].shape[1]
+        dg_bound, dg_bound_by = bound_ms(
+            k1_jacobi_flops(contour.shape[0], s_, SIM.steps_2d,
+                            res_np["cfull"], res_np["ccheap"]),
+            k1_bytes(8, contour.shape[0], s_, 9088))
+        print(f"  K1 Jacobi datagen 8x9088x200: {plan}; kernel {dg_ms:.2f} "
+              f"ms/call, plain {dg_plain_ms:.0f} ms, bound {dg_bound:.2f} ms "
+              f"({dg_bound_by}); full steps per block "
+              f"{res_np['cfull'][:, ::128].mean():.1f} of 200", flush=True)
+        gold = np.load(os.path.join(ROOT, "tests", "fixtures",
+                                    "rollout2d_jacobi_golden.npz"))
+        check(str(gold["solver"]) == "jacobi", "Jacobi golden fixture")
+        garrs = [torch.as_tensor(gold[k], device=dev)
+                 for k in ("coefs", "contour", "support", "scalars")]
+        gposes = torch.as_tensor(gold["poses"], device=dev)
+        for sched in ("datagen", "eval"):
+            steps, rg, snap = (int(v) for v in gold[f"{sched}_schedule"])
+            g_out = rollout2d.rollout(*garrs, gposes, steps=steps,
+                                      regrasp_every=rg, snapshot_step=snap)
+            parity({k: v.cpu().numpy() for k, v in zip(NAMES, g_out)},
+                   {k: gold[f"{sched}_{k}"] for k in NAMES},
+                   f"Jacobi golden {sched} ({steps} steps), kernel vs TPU "
+                   f"kernel")
+
+        # ---- the main path: (b) and (c), launches counted ----------------
+        for k in rollout2d.KERNEL_LAUNCHES:
+            rollout2d.KERNEL_LAUNCHES[k] = 0
+        # (b) verification through sim_eval_batch_2d: 16 x 360 (384) x 8,000
+        ys = np.stack([np.concatenate(sample_gripper_2d(100 + i))
+                       for i in range(16)])
+        pts = normalize_y(ys)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = sim_eval_batch_2d(pts, [contour], device=dev)
+        torch.cuda.synchronize()
+        ev_call_s = time.perf_counter() - t0
+        check(len(metrics) == 16 and all(
+            np.isfinite(m["delta_theta"]).all()
+            and np.isfinite(m["final_pos"]).all() for m in metrics),
+            "sim_eval_batch_2d: 16 finite metric dicts")
+        b_launches = dict(rollout2d.KERNEL_LAUNCHES)
+        check(b_launches["rollout2d_jacobi"] == 1
+              and b_launches["rollout2d"] == 0,
+              f"verification launched the Jacobi branch once: {b_launches}")
+
+        # (c) gradient design on the card: the demo's protocol, depth cut
+        gcontour = demo_contour()
+        yl0, yr0 = sample_gripper_2d(0)
+        gkw = dict(objective="rotate_clockwise", num_rot=36, steps=200,
+                   num_pairs=4, holdout_draws=8)
+        iters = 10
+        print(f"  gradient design (scripts/demo_grad_design.py's protocol: "
+              f"sample_gripper_2d(0), its contour, {gkw}); depth cut: "
+              f"{iters} iterations, the demo runs 50", flush=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gd = graddesign.design_gradient_2d(yl0, yr0, gcontour, iters=iters,
+                                           device=dev, **gkw)
+        torch.cuda.synchronize()
+        gd_s = time.perf_counter() - t0
+        hold = np.asarray(gd["holdout"])
+        check(len(gd["history"]) == iters
+              and np.isfinite(gd["history"]).all()
+              and len(hold) == iters + 1 and np.isfinite(hold).all(),
+              "gradient design: finite history and holdout")
+        check(gd["best_iter"] == int(np.argmax(hold)) - 1
+              and (gd["best_iter"] >= 0
+                   or np.array_equal(gd["y"], gd["y0"])),
+              "gradient design: best_iter is the held-out argmax")
+        g = GRIPPER_2D
+        check(gd["y"].min() >= g.ctrl_y_min - 1e-6
+              and gd["y"].max() <= g.ctrl_y_max + 1e-6,
+              "gradient design: the design stays in the control range")
+        print(f"  smoothed: {gd_s:.2f}s for {iters} iterations and the "
+              f"held-out pass ({gd_s / iters:.3f} s an iteration); history "
+              f"{np.round(gd['history'], 4).tolist()}; held-out "
+              f"{np.round(hold, 4).tolist()}; best iterate "
+              f"{gd['best_iter']}", flush=True)
+        # iteration 0 against the same call on the CPU (the held-out draws
+        # come from another stream, so one draw does there)
+        t0 = time.perf_counter()
+        cpu = graddesign.design_gradient_2d(
+            yl0, yr0, gcontour, iters=1, device="cpu",
+            **{**gkw, "holdout_draws": 1})
+        cpu_s = time.perf_counter() - t0
+        it0_err = float(np.abs(gd["objectives"][0]
+                               - cpu["objectives"][0]).max())
+        check(it0_err < 2e-3, f"iteration 0 card vs CPU: {it0_err:.3g}")
+        print(f"  iteration 0's 8 candidate objectives, card vs CPU: max "
+              f"|diff| {it0_err:.3g} (bar 2e-3; the CPU call "
+              f"{cpu_s:.1f}s)", flush=True)
+        # the backprop estimator
+        t0 = time.perf_counter()
+        bp = graddesign.design_gradient_2d(yl0, yr0, gcontour, iters=2,
+                                           method="backprop", device=dev,
+                                           **gkw)
+        torch.cuda.synchronize()
+        bp_s = time.perf_counter() - t0
+        check(np.isfinite(bp["grad_norms"]).all()
+              and min(bp["grad_norms"]) > 0
+              and np.isfinite(bp["history"]).all(),
+              f"backprop: finite, non-zero gradients {bp['grad_norms']}")
+        print(f"  backprop: 2 iterations {bp_s:.2f}s, gradient norms "
+              f"{np.round(bp['grad_norms'], 4).tolist()}", flush=True)
+        # start and designed gripper on 96 orientations, as the demo
+        # evaluates them: the pure engine and K1, under both solvers
+        th = np.linspace(0, 2 * np.pi, 96, endpoint=False)
+        p96 = np.stack([np.zeros_like(th), np.zeros_like(th), th],
+                       -1).astype(np.float32)
+        designs = {"start": gd["y0"], "designed": gd["y"]}
+        scenes = {k: engine2d.make_scene(v[0].astype(np.float64),
+                                         v[1].astype(np.float64), gcontour)
+                  for k, v in designs.items()}
+        pose_t = torch.as_tensor(p96, device=dev)
+        pose_k = torch.as_tensor(datagen.pad_poses(p96), device=dev)
+        evals, k96 = {}, {}
+        for solver in ("jacobi", "newton"):
+            # each solver with its own calibration (default_calib)
+            engine2d.SOLVER = solver
+            arrs = rollout2d.scene_arrays(datagen.stack_scenes(
+                list(scenes.values())), device=dev)
+            t0 = time.perf_counter()
+            pure = [engine2d.profile(to_device(sc, dev), pose_t)[0]
+                    for sc in scenes.values()]
+            torch.cuda.synchronize()
+            pure_s = time.perf_counter() - t0
+            kout = rollout2d.profile_batch(*arrs, pose_k)
+            kern = kout[0][:, :96]
+            k96[solver] = (arrs, kout)
+            for i, k in enumerate(designs):
+                # the demo's statistics of rotate_clockwise: the mean of
+                # -dtheta and the share of orientations above 0.03 rad
+                a = -pure[i].cpu().numpy()
+                b = -kern[i].cpu().numpy()
+                check(np.isfinite(a).all() and np.isfinite(b).all(),
+                      f"96-orientation evaluation {solver} {k}")
+                evals[f"{solver}_{k}"] = {
+                    "pure_mean": float(np.mean(a)),
+                    "pure_success": float(np.mean(a > 0.03)),
+                    "k1_mean": float(np.mean(b)),
+                    "k1_success": float(np.mean(b > 0.03))}
+            evals[f"{solver}_pure_s"] = pure_s
+        engine2d.SOLVER = "jacobi"
+        launches = dict(rollout2d.KERNEL_LAUNCHES)
+        check(launches["rollout2d_jacobi"] == 2 and launches["rollout2d"] == 1,
+              f"phase 10 main path: K1 Jacobi 2, Newton 1 launches: "
+              f"{launches}")
+        for k, v in evals.items():
+            print(f"  96 orientations, {k}: {v}", flush=True)
+
+        # ---- outside the counted run: the plain versions of the main path's
+        # K1 calls, (b)'s kernel alone and its snapshot ----------------------
+        for solver, (arrs, kout) in k96.items():
+            r = profile_batch_ref(*arrs, pose_k, solver=solver,
+                                  sum_group=rollout2d.THREADS_PER_ROLLOUT)
+            bitwise(f"K1 {solver} 96 orientations 2x128x200 (the main path's "
+                    f"call)", kout, (r[0], torch.stack(r[1:3], -1), r[3],
+                                     torch.stack(r[4:6], -1)), range(4))
+        y = denormalize_y(pts)
+        arrs16 = rollout2d.scene_arrays(datagen.stack_scenes(
+            [engine2d.make_scene(yi[:7], yi[7:], contour) for yi in y]),
+            device=dev)
+        thetas = (np.linspace(-1.0, 1.0, 360) * np.pi + np.pi).astype(
+            np.float32)
+        th_p = datagen.pad_poses(thetas[:, None])[:, 0]
+        eposes = torch.as_tensor(
+            np.stack([np.zeros_like(th_p), np.zeros_like(th_p), th_p], -1),
+            device=dev)
+        ekw = dict(steps=SIM.eval_steps_2d, regrasp_every=SIM.eval_regrasp_2d,
+                   snapshot_step=SIM.eval_regrasp_2d)
+        ev_ms, ev = timed_cuda(lambda: rollout2d.rollout(*arrs16, eposes,
+                                                          **ekw), reps=1)
+        sq = rollout2d.rollout(*arrs16, eposes, steps=SIM.eval_regrasp_2d)
+        bitwise("K1 Jacobi verify 16x384x8000: 200-step snapshot vs the "
+                "kernel's own 200-step squeeze", ev, sq, (0, 1, 2))
+        check(all(np.array_equal(
+            metrics[i]["delta_theta"],
+            ev[0][i, :360].cpu().numpy() * 180.0 / np.pi) for i in range(16)),
+            "sim_eval_batch_2d's profiles are this kernel's snapshot")
+        # the verify shape with its depth cut, against the plain version
+        cut = 1000
+        ckw = {**ekw, "steps": cut}
+        c_out = rollout2d.rollout(*arrs16, eposes, **ckw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c_ref = profile_batch_ref(*arrs16, eposes, **ckw,
+                                  sum_group=rollout2d.THREADS_PER_ROLLOUT)
+        torch.cuda.synchronize()
+        cut_plain_s = time.perf_counter() - t0
+        bitwise(f"K1 Jacobi verify 16x384x{cut} (depth cut from 8,000; "
+                f"regrasp and snapshot at {ekw['snapshot_step']})", c_out,
+                c_ref, range(8))
+        print(f"  plain Jacobi K1 at 16x384x{cut}: {cut_plain_s:.1f}s",
+              flush=True)
+        ev_np = {k: v.cpu().numpy() for k, v in zip(NAMES, ev)}
+        ev_bound, ev_bound_by = bound_ms(
+            k1_jacobi_flops(contour.shape[0], s_, ekw["steps"],
+                            ev_np["cfull"], ev_np["ccheap"]),
+            k1_bytes(16, contour.shape[0], s_, 384))
+        print(f"  K1 Jacobi verify 16x384x8000: {chosen(rollout2d)}; "
+              f"sim_eval_batch_2d {ev_call_s:.2f}s on the host clock, "
+              f"kernel {ev_ms:.1f} ms, bound {ev_bound:.2f} ms "
+              f"({ev_bound_by}); full steps per block "
+              f"{ev_np['cfull'][:, ::128].mean():.0f} of 8,000", flush=True)
+        # the pure engine's cost on the card, both solvers
+        base = to_device(scenes["start"], dev)
+        y0 = torch.as_tensor(gd["y0"], device=dev)
+        cost = {}
+        for solver in ("jacobi", "newton"):
+            engine2d.SOLVER = solver
+            cost[solver] = engine_step_cost(dev, base, y0)
+            print(f"  pure engine ({solver}) at 8 x 36 rollouts: "
+                  f"{cost[solver]}", flush=True)
+        out = {"datagen": {"kernel_ms": dg_ms, "plain_ms": dg_plain_ms,
+                           "bound_ms": dg_bound, "bound_by": dg_bound_by,
+                           "parity": stats,
+                           "full_steps_per_block": float(
+                               res_np["cfull"][:, ::128].mean())},
+               "verify": {"kernel_ms": ev_ms, "call_s": ev_call_s,
+                          "cut_steps": cut, "cut_plain_s": cut_plain_s,
+                          "bound_ms": ev_bound, "bound_by": ev_bound_by,
+                          "full_steps_per_block": float(
+                              ev_np["cfull"][:, ::128].mean())},
+               "design": {"seconds": gd_s, "iters": iters,
+                          "history": gd["history"], "holdout": gd["holdout"],
+                          "best_iter": gd["best_iter"],
+                          "iteration0_cpu_err": it0_err, "cpu_s": cpu_s,
+                          "backprop_s": bp_s,
+                          "backprop_grad_norms": bp["grad_norms"],
+                          "eval96": evals},
+               "engine_cost": cost, "launches": launches,
+               "seconds": time.perf_counter() - t_phase}
+    finally:
+        engine2d.SOLVER = old_solver
     return out
 
 
@@ -764,6 +1166,8 @@ def main() -> int:
     from dgdm_tpu_torch.sim import datagen, engine2d, rollout2d, rollout3d
     from dgdm_tpu_torch.sim.rollout2d_ref import profile_batch_ref
 
+    # phases 2-9 run the default configuration (phase 10 sets "jacobi")
+    engine2d.SOLVER = "newton"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # the training CLIs' metric sink mirrors to wandb where it is installed;
@@ -772,6 +1176,7 @@ def main() -> int:
     dev = torch.device("cuda")
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
+    clock = PhaseClock()
 
     # ---- 1. the card and the build --------------------------------------
     smi = subprocess.run(
@@ -792,10 +1197,20 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {len(libraries)} kernel source(s) in {build_s:.1f}s",
           flush=True)
-    registers = {k: ptxas_report(k, lib) for k, lib in libraries.items()}
+    # K1's two instantiations: rollout2d_kernel<16, Solver>, Solver = 0
+    # (Newton) and 1 (Jacobi)
+    regs2 = ptxas_report("rollout2d", rollout2d.LIBRARY, n_kernels=2)
+    inst = {k: [r for e, r in regs2.items() if f"ILi16ELi{k}EE" in e]
+            for k in (0, 1)}
+    check(all(len(v) == 1 for v in inst.values()),
+          f"rollout2d: instantiations Solver = 0, 1 in the build log: {regs2}")
+    registers = {"rollout2d": inst[0][0], "rollout2d_jacobi": inst[1][0],
+                 "rollout3d": next(iter(ptxas_report(
+                     "rollout3d", rollout3d.LIBRARY).values()))}
     for lib in libraries.values():
         lib.get()
 
+    clock.done("1")
     # ---- 2. K1 datagen schedule at full size ------------------------------
     contour = extract_contours(synthetic_icon(0))
     scenes8 = datagen.stack_scenes(
@@ -844,6 +1259,7 @@ def main() -> int:
                {k: gold[f"{sched}_{k}"] for k in NAMES},
                f"golden {sched} ({steps} steps), kernel vs TPU kernel")
 
+    clock.done("2")
     # ---- 3. K1 eval schedule: 16 pairs x 360 orientations x 8,000 steps ---
     # host work of one verification call (scene builds of 16 new grippers,
     # their upload, and the per-gripper metrics below), timed beside K1
@@ -907,6 +1323,7 @@ def main() -> int:
     ev_bound, ev_bound_by = bound_ms(
         ev_flops, k1_bytes(16, contour.shape[0], arrs16[2].shape[1], 384))
 
+    clock.done("3")
     # ---- 4. the design loop through cli.sample.main -----------------------
     from dgdm_tpu_torch.cli import sample as sample_cli
     from dgdm_tpu_torch.eval.simeval import sim_eval_batch_2d
@@ -971,8 +1388,9 @@ def main() -> int:
         call_k_ms, sout = timed_cuda(
             lambda: rollout2d.rollout(*arrs_s, eposes, **ekw), reps=1)
         call_full = float(sout[6][:, ::128].mean())
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the design path")
+    check(launches["rollout2d"] > 0 and launches["rollout2d_jacobi"] == 0,
+          f"the design path (Newton) launches K1's Newton instantiation "
+          f"only: {launches}")
     print(f"design loop: {design_s:.1f}s end to end (sweep "
           f"{report['design_sweep']['seconds']:.2f}s for "
           f"{report['design_sweep']['pairs']} pairs, verification "
@@ -983,7 +1401,8 @@ def main() -> int:
           f"{call_k_ms:.0f} ms of it; full-solve steps per block "
           f"{call_full:.0f} of 8,000", flush=True)
 
-    k2 = phases_3d(dev)
+    clock.done("4")
+    k2 = phases_3d(dev, clock)
 
     # ---- 8. a settled-travel step ----------------------------------------
     k1_travel = travel_step_us(rollout2d, arrs16, eposes, (14, 15), (6, 7))
@@ -1006,10 +1425,16 @@ def main() -> int:
         print(f"{what}: {new:.1f} ms/call now, {old:.1f} ms with one thread "
               f"a rollout (earlier row): {old / new:.2f}x", flush=True)
 
+    clock.done("8 (with the 3D travel step)")
     # ---- 9. the data-to-checkpoint path ----------------------------------
     train = phase_train_path(dev, k2["datagen"]["kernel_ms"])
+    clock.done("9")
 
-    # ---- 10. summary ------------------------------------------------------
+    # ---- 10. the Jacobi configuration and gradient design -----------------
+    jac = phase_jacobi_design(dev)
+    clock.done("10")
+
+    # ---- 11. summary ------------------------------------------------------
     summary = {
         "card": card, "build_s": build_s, "registers": registers,
         "travel_k1": k1_travel,
@@ -1029,7 +1454,8 @@ def main() -> int:
         "design_loop_s": design_s, "launches": launches,
         "design_call": {"seconds": call_s, "kernel_ms": call_k_ms,
                         "full_steps_per_block": call_full},
-        "k2": k2, "train_path": train,
+        "k2": k2, "train_path": train, "jacobi": jac,
+        "phase_s": clock.seconds,
         "seconds": time.perf_counter() - t_start,
     }
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
@@ -1078,6 +1504,25 @@ def main() -> int:
         "datagen_bound_ms": k2["datagen"]["bound_ms"],
         "datagen_cli_launches": train["dg_launches"]["rollout3d"],
         "train_path_launches": train["launches"]["rollout3d"],
+    }, {
+        "name": "rollout2d_jacobi", "route": "cuda",
+        "source": "dgdm_tpu_torch/csrc/rollout2d.cu",
+        "replaces": "dgdm_tpu/sim/pallas2d.py:221",
+        "launches": jac["launches"]["rollout2d_jacobi"],
+        "max_abs_err": max(v["max_abs_err"]
+                           for v in jac["datagen"]["parity"].values()),
+        # kernel, plain version and bound on the same work: the datagen
+        # shape (the plain version at the verify shape takes minutes)
+        "ms": jac["datagen"]["kernel_ms"],
+        "plain_ms": jac["datagen"]["plain_ms"],
+        "bound_ms": jac["datagen"]["bound_ms"],
+        "bound_by": jac["datagen"]["bound_by"], "library_ms": None,
+        "shape": "8 pairs x 9088 poses x 200 steps (datagen)",
+        "registers": registers["rollout2d_jacobi"],
+        "verify_ms": jac["verify"]["kernel_ms"],
+        "verify_bound_ms": jac["verify"]["bound_ms"],
+        "verify_shape": "16 pairs x 384 poses x 8000 steps",
+        "verify_plain_bitwise_steps": jac["verify"]["cut_steps"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

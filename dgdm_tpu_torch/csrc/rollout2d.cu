@@ -1,7 +1,9 @@
 // 2D squeeze rollouts (kernel K1) for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_rollout_kernel` of dgdm_tpu/sim/pallas2d.py
-// (Newton contact solver). The Pallas grid cell, one (pair, 128-pose group),
+// Replaces the TPU kernel `_rollout_kernel` of dgdm_tpu/sim/pallas2d.py,
+// both of its contact solvers, as two instantiations of one kernel body
+// (template parameter Solver): the coupled Newton solve (branches a-c) and
+// projected Jacobi (branch d, pallas2d.py:221-334). The Pallas grid cell, one (pair, 128-pose group),
 // is one thread block cluster here: G threads of a warp carry one rollout
 // and share its contour and support points (lane `sub` takes p = sub,
 // sub + G, ...; a count that G does not divide leaves the upper lanes one
@@ -40,6 +42,20 @@
 // have (P > 384 on the H100; above ~170 points an SM holds one block, not
 // two). Nothing of a step touches device memory.
 //
+// Jacobi (Solver = kJacobi). Every normal step is a full solve (no cheap
+// path; the settled-travel gate, regrasp and snapshot are shared): the
+// contact geometry and explicit elastic wedge impulse of every point, its
+// global energy clamp (a min over the rollout's points: a lane min, then a
+// shuffle min over the G lanes, exact in any order), the mean-field plane
+// unloading, then 6 projected-Jacobi iterations, each three passes (contour
+// points; supports' planar friction; supports' torsion) whose float64 sums
+// feed the next. The accumulators live across the iterations in the slab:
+// 12 floats a contour point (geometry, solve weights, lam_n, lam_t) and 3 a
+// support point (lam_sx, lam_sy, lam_w): 96 KB a block at 100 points and 64
+// supports, two blocks an SM. The launcher refuses a count that does not fit
+// a block (P > 272 at 64 supports on the H100). Not tuned: it only has to
+// be right.
+//
 // Numerics: float32 state and elementwise physics, compiled without fast
 // math and with -fmad=false, so that each expression rounds like the plain
 // PyTorch version (dgdm_tpu_torch/sim/rollout2d_ref.py), which keeps the
@@ -62,15 +78,22 @@ constexpr int kLane = rollout::kGroup;
 constexpr int kThreadsPerRollout = 16;   // the layout K1 is built for
 constexpr int kSeg = 6;      // cubic segments per finger curve
 constexpr int kScal = 16;    // per-pair scalar slots (rollout2d.scene_arrays)
+// contact solvers (rollout2d.SOLVER_CODES): one instantiation each
+constexpr int kNewton = 0;
+constexpr int kJacobi = 1;
 
 }  // namespace
 
 // Must match rollout2d._Params (ctypes) field for field.
 struct Rollout2DParams {
-  int steps, regrasp_every, snapshot_step, newton_iters;
+  int steps, regrasp_every, snapshot_step, newton_iters, solver,
+      solver_iters;
   float dt, ctrl_l, ctrl_r, x0f, x1f, h, inv_h, surf_l0, surf_r0, kp,
       damping, plane_z, gravity, k_plane, b_plane, depth_el_cap, impedance,
       eps_settled, marg;
+  // Jacobi: the base solref gains of its stopping target, the crack
+  // capture's saturation depth
+  float k_base, b_base, rough_sat;
 };
 
 namespace {
@@ -123,11 +146,17 @@ struct Shared {
   const float* sw;     // (S,) support weights
 };
 
-__device__ __forceinline__ void point_geo(
+// The contact of one contour point with the nearer finger, from the step's
+// start state (both solvers).
+struct Contact {
+  float rx, ry, nx, ny, rxn, rxt, tx, ty, depth, act, me_n, me_t, vn0;
+  bool is_l;
+};
+
+__device__ __forceinline__ void contact_at(
     const Shared& sh, const Pair& pc, const Rollout2DParams& prm,
-    const Lane& L, int p, Geo& g) {
+    const Lane& L, int p, Contact& q) {
   const float c = L.c, s = L.s;
-  const float d_imp = prm.impedance;
   float cbx = sh.cbx[p], cby = sh.cby[p];
   float rx = cbx * c - cby * s;
   float ry = cbx * s + cby * c;
@@ -163,16 +192,27 @@ __device__ __forceinline__ void point_geo(
   float me_t = 1.0f / (pc.inv_m + rxt * rxt * pc.inv_i + ty * ty * inv_fm);
   float qd_c0 = is_l ? L.qdl : L.qdr;
   float vn0 = (L.vx - L.om * ry) * nx + (L.vy + L.om * rx - qd_c0) * ny;
-  g.rx = rx; g.ry = ry; g.nx = nx; g.ny = ny; g.tx = tx; g.ty = ty;
-  g.rxn = rxn; g.rxt = rxt;
-  g.sl = is_l ? 1.0f : 0.0f;
+  q.rx = rx; q.ry = ry; q.nx = nx; q.ny = ny; q.tx = tx; q.ty = ty;
+  q.rxn = rxn; q.rxt = rxt; q.depth = depth; q.act = act; q.me_n = me_n;
+  q.me_t = me_t; q.vn0 = vn0; q.is_l = is_l;
+}
+
+__device__ __forceinline__ void point_geo(
+    const Shared& sh, const Pair& pc, const Rollout2DParams& prm,
+    const Lane& L, int p, Geo& g) {
+  const float d_imp = prm.impedance;
+  Contact q;
+  contact_at(sh, pc, prm, L, p, q);
+  g.rx = q.rx; g.ry = q.ry; g.nx = q.nx; g.ny = q.ny; g.tx = q.tx;
+  g.ty = q.ty; g.rxn = q.rxn; g.rxt = q.rxt;
+  g.sl = q.is_l ? 1.0f : 0.0f;
   g.sr = 1.0f - g.sl;
-  g.tgt_n = (1.0f - d_imp * pc.b_con * prm.dt) * vn0
-      + d_imp * prm.dt * pc.k_con * depth;
-  g.w_nn = act * me_n / pc.c_r2;
-  g.w_tt = act * me_t / pc.c_r2;
-  float depth_el = act * clampf(depth, 0.0f, prm.depth_el_cap);
-  g.cap_rough = pc.rough * me_t * depth_el;
+  g.tgt_n = (1.0f - d_imp * pc.b_con * prm.dt) * q.vn0
+      + d_imp * prm.dt * pc.k_con * q.depth;
+  g.w_nn = q.act * q.me_n / pc.c_r2;
+  g.w_tt = q.act * q.me_t / pc.c_r2;
+  float depth_el = q.act * clampf(q.depth, 0.0f, prm.depth_el_cap);
+  g.cap_rough = pc.rough * q.me_t * depth_el;
 }
 
 // A lane's contact geometry, held across the passes of a full solve: 9 of
@@ -507,7 +547,193 @@ __device__ __forceinline__ void cheap_solve(
   }
 }
 
+// The Jacobi slab: kJHeld floats a contour point (rx, ry, nx, ny, sl, then
+// fields that pass A holds for the later passes and pass C replaces with
+// the solve's: me_n -> w_c me_n, me_t -> w_c me_t, tgt, the elastic
+// impulse (scaled by the clamp in pass C), depth_el -> the crack-capture
+// cap, vn0 -> lam_n, act -> lam_t), then kJSup floats a support point
+// (lam_sx, lam_sy, lam_w), each in the thread's own column.
+constexpr int kJHeld = 12;
+constexpr int kJSup = 3;
+enum { kRx, kRy, kNx, kNy, kSl, kWcn, kWct, kTgt, kImp, kCapr, kLamN, kLamT };
+
+// Projected Jacobi with the explicit elastic wedge impulse
+// (pallas2d.py:221-334): u = (vx, vy, om, qdl, qdr) in/out, from the
+// step's start velocities. Lane `sub` takes the contour points and the
+// support points sub, sub + G, ...
 template <int G>
+__device__ __forceinline__ void jacobi_solve(
+    const Shared& sh, const Pair& pc, const Rollout2DParams& prm,
+    const Lane& L, int P, int S, int sub, float* slab, float* u) {
+  constexpr int T = rollout::Layout<G>::kThreads;
+  float* sup = slab + kJHeld * T * ((P + G - 1) / G);
+  const float d_imp = prm.impedance, dt = prm.dt;
+  const float n_total = L.n_total;
+  // ---- pass A: geometry and the unclamped elastic impulse ----
+  double s_act = 0.0, s_ex = 0.0, s_ey = 0.0, s_er = 0.0, s_el = 0.0,
+         s_err = 0.0;
+  for (int p = sub, k = 0; p < P; p += G, ++k) {
+    Contact q;
+    contact_at(sh, pc, prm, L, p, q);
+    float tgt = (1.0f - d_imp * prm.b_base * dt) * q.vn0
+        + d_imp * dt * prm.k_base * q.depth;
+    float depth_el = q.act * clampf(q.depth, 0.0f, prm.depth_el_cap);
+    float v_capn = d_imp * dt * pc.k_con * depth_el;
+    float dv_el = mn(mx(d_imp * dt * (pc.k_con * depth_el - pc.b_con * q.vn0),
+                        0.0f),
+                     mx(v_capn - q.vn0, 0.0f));
+    float imp = q.act * q.me_n * dv_el;
+    float sl = q.is_l ? 1.0f : 0.0f;
+    s_act = s_act + (double)q.act;
+    s_ex = s_ex + (double)(imp * q.nx);
+    s_ey = s_ey + (double)(imp * q.ny);
+    s_er = s_er + (double)(imp * q.rxn);
+    s_el = s_el + (double)(sl * imp * q.ny);
+    s_err = s_err + (double)((1.0f - sl) * imp * q.ny);
+    float* f = slab + k * kJHeld * T;
+    f[kRx * T] = q.rx; f[kRy * T] = q.ry; f[kNx * T] = q.nx;
+    f[kNy * T] = q.ny; f[kSl * T] = sl; f[kWcn * T] = q.me_n;
+    f[kWct * T] = q.me_t; f[kTgt * T] = tgt; f[kImp * T] = imp;
+    f[kCapr * T] = depth_el; f[kLamN * T] = q.vn0; f[kLamT * T] = q.act;
+  }
+  const float cnt = mx(group_sum<G>(s_act), 1.0f);
+  const float dvx_u = group_sum<G>(s_ex) * pc.inv_m;
+  const float dvy_u = group_sum<G>(s_ey) * pc.inv_m;
+  const float dom_u = group_sum<G>(s_er) * pc.inv_i;
+  const float dqdl_u = -group_sum<G>(s_el) * pc.inv_fml;
+  const float dqdr_u = -group_sum<G>(s_err) * pc.inv_fmr;
+  // ---- pass B: the global energy clamp, a min over the points ----
+  float lo = INFINITY;
+  for (int p = sub, k = 0; p < P; p += G, ++k) {
+    const float* f = slab + k * kJHeld * T;
+    float rx = f[kRx * T], ry = f[kRy * T], nx = f[kNx * T], ny = f[kNy * T];
+    float act = f[kLamT * T], vn0 = f[kLamN * T];
+    float dqd_pt = f[kSl * T] != 0.0f ? dqdl_u : dqdr_u;
+    float dvn_ind = (dvx_u - dom_u * ry) * nx + (dvy_u + dom_u * rx - dqd_pt) * ny;
+    float v_capn = d_imp * dt * pc.k_con * f[kCapr * T];
+    float headroom = mx(v_capn - vn0, 0.0f);
+    float ratio = (act > 0.0f && dvn_ind > 1e-9f)
+        ? headroom / (dvn_ind + 1e-9f) : INFINITY;
+    lo = mn(lo, ratio);
+  }
+  const float s_clamp = clampf(rollout::group_min<G>(lo), 0.0f, 1.0f);
+  // ---- pass C: the clamped impulse, the solve's weights ----
+  double s_g = 0.0;
+  s_ex = 0.0; s_ey = 0.0; s_er = 0.0; s_el = 0.0; s_err = 0.0;
+  for (int p = sub, k = 0; p < P; p += G, ++k) {
+    float* f = slab + k * kJHeld * T;
+    float rx = f[kRx * T], ry = f[kRy * T], nx = f[kNx * T], ny = f[kNy * T];
+    float sl = f[kSl * T];
+    float imp = s_clamp * f[kImp * T];
+    float w_c = f[kLamT * T] / cnt;
+    float me_t = f[kWct * T];
+    float rxn = rx * ny - ry * nx;
+    s_g = s_g + (double)imp;
+    s_ex = s_ex + (double)(imp * nx);
+    s_ey = s_ey + (double)(imp * ny);
+    s_er = s_er + (double)(imp * rxn);
+    s_el = s_el + (double)(sl * imp * ny);
+    s_err = s_err + (double)((1.0f - sl) * imp * ny);
+    f[kWcn * T] = w_c * f[kWcn * T];
+    f[kWct * T] = w_c * me_t;
+    f[kImp * T] = imp;
+    f[kCapr * T] = pc.rough * me_t * mn(f[kCapr * T], prm.rough_sat);
+    f[kLamN * T] = 0.0f;
+    f[kLamT * T] = 0.0f;
+  }
+  const float grip = group_sum<G>(s_g) / (dt * pc.mass * prm.gravity);
+  u[0] = u[0] + group_sum<G>(s_ex) * pc.inv_m;
+  u[1] = u[1] + group_sum<G>(s_ey) * pc.inv_m;
+  u[2] = u[2] + group_sum<G>(s_er) * pc.inv_i;
+  // L.uu[3..4] = qd + dt * f * inv_fm, the servo's unconstrained update
+  u[3] = L.uu[3] - group_sum<G>(s_el) * pc.inv_fml;
+  u[4] = L.uu[4] - group_sum<G>(s_err) * pc.inv_fmr;
+  for (int k = sub, j = 0; k < S; k += G, ++j) {
+    float* f = sup + j * kJSup * T;
+    f[0] = 0.0f; f[T] = 0.0f; f[2 * T] = 0.0f;
+  }
+  // plane load of support k (mean-field unloading by the grip)
+  auto load = [&](int k) {
+    return sh.sw[k] * n_total / (1.0f + pc.unload * grip);
+  };
+
+  for (int it = 0; it < prm.solver_iters; ++it) {
+    // ---- contour points: normal and friction impulses ----
+    double s_ix = 0.0, s_iy = 0.0, s_ir = 0.0, s_il = 0.0, s_irr = 0.0;
+    for (int p = sub, k = 0; p < P; p += G, ++k) {
+      float* f = slab + k * kJHeld * T;
+      float rx = f[kRx * T], ry = f[kRy * T], nx = f[kNx * T], ny = f[kNy * T];
+      float sl = f[kSl * T];
+      float tx = -ny, ty = nx;
+      float rxn = rx * ny - ry * nx;
+      float rxt = rx * ty - ry * tx;
+      float qd_cc = sl != 0.0f ? u[3] : u[4];
+      float vpx = u[0] - u[2] * ry;
+      float vpy = u[1] + u[2] * rx - qd_cc;
+      float vn = vpx * nx + vpy * ny;
+      float vt = vpx * tx + vpy * ty;
+      float lam_n = f[kLamN * T], lam_t = f[kLamT * T];
+      float new_n = mx(lam_n + f[kWcn * T] * (f[kTgt * T] - vn), 0.0f);
+      float d_n = new_n - lam_n;
+      float cap = pc.mu_finger * (new_n + f[kImp * T]) + f[kCapr * T];
+      float new_t = clampf(lam_t - f[kWct * T] * vt, -cap, cap);
+      float d_t = new_t - lam_t;
+      float ix = d_n * nx + d_t * tx;
+      float iy = d_n * ny + d_t * ty;
+      s_ix = s_ix + (double)ix;
+      s_iy = s_iy + (double)iy;
+      s_ir = s_ir + (double)(d_n * rxn + d_t * rxt);
+      s_il = s_il + (double)(sl * iy);
+      s_irr = s_irr + (double)((1.0f - sl) * iy);
+      f[kLamN * T] = new_n;
+      f[kLamT * T] = new_t;
+    }
+    u[0] = u[0] + group_sum<G>(s_ix) * pc.inv_m;
+    u[1] = u[1] + group_sum<G>(s_iy) * pc.inv_m;
+    u[2] = u[2] + group_sum<G>(s_ir) * pc.inv_i;
+    u[3] = u[3] - group_sum<G>(s_il) * pc.inv_fml;
+    u[4] = u[4] - group_sum<G>(s_irr) * pc.inv_fmr;
+    // ---- supports: planar friction ----
+    double s_sx = 0.0, s_sy = 0.0, s_sm = 0.0;
+    for (int k = sub, j = 0; k < S; k += G, ++j) {
+      float* f = sup + j * kJSup * T;
+      float rsx = sh.sbx[k] * L.c - sh.sby[k] * L.s;
+      float rsy = sh.sbx[k] * L.s + sh.sby[k] * L.c;
+      float vsx = u[0] - u[2] * rsy;
+      float vsy = u[1] + u[2] * rsx;
+      float lam_sx = f[0], lam_sy = f[T];
+      float nsx = lam_sx - sh.sw[k] * pc.mass * vsx;
+      float nsy = lam_sy - sh.sw[k] * pc.mass * vsy;
+      float cap_s = pc.mu_plane * load(k) * dt;
+      float nrm = sqrtf(nsx * nsx + nsy * nsy + 1e-20f);
+      float sc = mn(1.0f, cap_s / nrm);
+      nsx = nsx * sc;
+      nsy = nsy * sc;
+      float d_sx = nsx - lam_sx, d_sy = nsy - lam_sy;
+      s_sx = s_sx + (double)d_sx;
+      s_sy = s_sy + (double)d_sy;
+      s_sm = s_sm + (double)(rsx * d_sy - rsy * d_sx);
+      f[0] = nsx;
+      f[T] = nsy;
+    }
+    u[0] = u[0] + group_sum<G>(s_sx) * pc.inv_m;
+    u[1] = u[1] + group_sum<G>(s_sy) * pc.inv_m;
+    u[2] = u[2] + group_sum<G>(s_sm) * pc.inv_i;
+    // ---- supports: torsion ----
+    double s_w = 0.0;
+    for (int k = sub, j = 0; k < S; k += G, ++j) {
+      float* f = sup + j * kJSup * T;
+      float cap_w = pc.mu_torsion * load(k) * dt;
+      float lam_w = f[2 * T];
+      float new_w = clampf(lam_w - sh.sw[k] * pc.inertia * u[2], -cap_w, cap_w);
+      s_w = s_w + (double)(new_w - lam_w);
+      f[2 * T] = new_w;
+    }
+    u[2] = u[2] + group_sum<G>(s_w) * pc.inv_i;
+  }
+}
+
+template <int G, int Solver>
 __global__ void __launch_bounds__(rollout::Layout<G>::kThreads,
                                    rollout::Layout<G>::kMinBlocks)
 rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
@@ -533,7 +759,8 @@ rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
   float* s_sbx = s_cby + P;                   // S
   float* s_sby = s_sbx + S;                   // S
   float* s_sw = s_sby + S;                    // S
-  // kHeld floats a point, ceil(P / G) points a lane, one column a thread
+  // one column a thread: Newton kHeld floats a point, ceil(P / G) points a
+  // lane; Jacobi kJHeld a point, then kJSup a support point
   float* slab = s_sw + S + tid;
   for (int k = tid; k < 2 * kSeg * 4; k += kThreads)
     s_coef[k] = coefs[(size_t)pair * 2 * kSeg * 4 + k];
@@ -645,14 +872,19 @@ rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
       __syncwarp();
       vz = vz + dt * (-prm.gravity + n_total * pc.inv_m);
       float u[5] = {L.uu[0], L.uu[1], L.uu[2], L.uu[3], L.uu[4]};
-      bool near = (cy <= pc.broad_a + ql) || (cy >= pc.broad_b + qr);
-      const bool any_f = vote.any(near);
-      if (any_f) {
-        full_solve<G>(sh, pc, prm, L, P, S, sub, slab, u);
+      if (Solver == kJacobi) {
+        jacobi_solve<G>(sh, pc, prm, L, P, S, sub, slab, u);
         cnt_f = cnt_f + 1.0f;
       } else {
-        cheap_solve<G>(sh, pc, prm, L, S, sub, u);
-        cnt_c = cnt_c + 1.0f;
+        bool near = (cy <= pc.broad_a + ql) || (cy >= pc.broad_b + qr);
+        const bool any_f = vote.any(near);
+        if (any_f) {
+          full_solve<G>(sh, pc, prm, L, P, S, sub, slab, u);
+          cnt_f = cnt_f + 1.0f;
+        } else {
+          cheap_solve<G>(sh, pc, prm, L, S, sub, u);
+          cnt_c = cnt_c + 1.0f;
+        }
       }
       vx = u[0]; vy = u[1]; om = u[2]; qdl = u[3]; qdr = u[4];
       cx = cx + dt * vx;
@@ -698,9 +930,10 @@ rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
 
 }  // namespace
 
-// `plan` (5 ints, may be null) receives the rollout::Plan of the launch.
-// Nothing is launched, and an error comes back, when P needs more shared
-// memory than a block may have or the card cannot hold one cluster
+// `plan` (5 ints, may be null) receives the rollout::Plan of the launch;
+// prm.solver picks the instantiation. Nothing is launched, and an error
+// comes back, when P (and, for Jacobi, S) needs more shared memory than a
+// block may have or the card cannot hold one cluster
 // (rollout::launch_clusters).
 extern "C" int rollout2d_launch(const float* coefs, const float* contour,
                                 const float* support, const float* scalars,
@@ -709,15 +942,24 @@ extern "C" int rollout2d_launch(const float* coefs, const float* contour,
                                 void* stream) {
   constexpr int G = kThreadsPerRollout;
   using LO = rollout::Layout<G>;
-  if (B <= 0 || P <= 0 || S < 0 || N <= 0 || N % kLane != 0)
+  if (B <= 0 || P <= 0 || S < 0 || N <= 0 || N % kLane != 0 ||
+      (prm.solver != kNewton && prm.solver != kJacobi))
     return (int)cudaErrorInvalidValue;
+  const size_t held = prm.solver == kJacobi
+      ? (size_t)kJHeld * ((P + G - 1) / G) + (size_t)kJSup * ((S + G - 1) / G)
+      : (size_t)kHeld * ((P + G - 1) / G);
   const size_t smem =
       sizeof(float) * (2 * kSeg * 4 + kScal + kPairFloats +
                        LO::kRollouts * kLaneStride + 2 * P + 3 * S +
-                       kHeld * LO::kThreads * (size_t)((P + G - 1) / G)) +
+                       held * LO::kThreads) +
       sizeof(int) * 2 * LO::kCluster;
+  const dim3 grid((N / kLane) * LO::kCluster, B);
+  rollout::Plan* pl = reinterpret_cast<rollout::Plan*>(plan);
+  if (prm.solver == kJacobi)
+    return rollout::launch_clusters<LO>(
+        rollout2d_kernel<G, kJacobi>, grid, smem, (cudaStream_t)stream, pl, G,
+        coefs, contour, support, scalars, poses, out, B, P, S, N, prm);
   return rollout::launch_clusters<LO>(
-      rollout2d_kernel<G>, dim3((N / kLane) * LO::kCluster, B), smem,
-      (cudaStream_t)stream, reinterpret_cast<rollout::Plan*>(plan), G, coefs,
-      contour, support, scalars, poses, out, B, P, S, N, prm);
+      rollout2d_kernel<G, kNewton>, grid, smem, (cudaStream_t)stream, pl, G,
+      coefs, contour, support, scalars, poses, out, B, P, S, N, prm);
 }

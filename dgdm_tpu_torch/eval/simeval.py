@@ -1,16 +1,20 @@
 """Simulation-in-the-loop evaluation of generated grippers — port of
-``dgdm_tpu/eval/simeval.py`` (``sim_eval_batch_2d``, ``objectives_table``).
+``dgdm_tpu/eval/simeval.py`` (``eval_rollout_batch``, ``sim_eval_batch_2d``,
+``objectives_table``).
 
 Every (object, gripper) pair is verified with 360 orientations of long
 rollouts with periodic re-grasp (jaws and velocities reset every 200 steps,
 ``dynamics/sim_test_mj.py:165-171``), recording the profile after the first
 squeeze (t = 200) and the final converged pose after 8,000 steps — one
-launch of the rollout kernel per object, all grippers batched.
+launch of the rollout kernel per object, all grippers batched, with the
+contact solver of ``engine2d.SOLVER``. ``eval_rollout_batch`` runs the same
+schedule through the pure engine.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import math
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -19,6 +23,43 @@ from dgdm_tpu_torch.core.config import SIM
 from dgdm_tpu_torch.eval.metrics import metric2objective, profile_metrics_2d
 from dgdm_tpu_torch.geom.fingers import denormalize_y
 from dgdm_tpu_torch.sim import datagen, engine2d, rollout2d
+from dgdm_tpu_torch.sim.types import Scene2D
+
+
+def eval_rollout_batch(
+    scenes: Scene2D,
+    thetas: torch.Tensor,
+    first_squeeze: int = SIM.eval_regrasp_2d,
+    total_steps: int = SIM.eval_steps_2d,
+    regrasp_every: int = SIM.eval_regrasp_2d,
+    calib: Optional[engine2d.Calib] = None,
+):
+    """The verification schedule on the pure engine. scenes: stacked pair
+    batch (B); thetas (G,) initial orientations at position (0, 0), on the
+    scenes' device.
+
+    Returns per (B, G): delta_theta/delta_pos after the first squeeze and
+    final_theta/final_pos after the full re-grasp schedule."""
+    if not 0 < first_squeeze <= total_steps:
+        raise ValueError(f"first_squeeze {first_squeeze} must lie in "
+                         f"(0, total_steps = {total_steps}]")
+    sc = engine2d.expand_scene(scenes, 1)
+    zero = torch.zeros_like(thetas)
+    pose = torch.stack([zero, zero, thetas], -1)
+    state = engine2d.init_state(sc, pose)
+    ctrl = torch.tensor([SIM.ctrl_2d, -SIM.ctrl_2d], dtype=torch.float32,
+                        device=thetas.device)
+    d_theta = d_pos = None
+    for i in range(total_steps):
+        rg = regrasp_every > 0 and i % regrasp_every == 0 and i > 0
+        state = engine2d.step(sc, state, ctrl, regrasp=rg, calib=calib)
+        if i + 1 == first_squeeze:
+            # the profile measurement at t = first_squeeze
+            d_theta = engine2d._wrap(state.theta - thetas)
+            d_pos = engine2d._origin_of(sc, state) - pose[..., :2]
+    final_theta = torch.remainder(state.theta, 2.0 * math.pi)
+    final_pos = engine2d._origin_of(sc, state)
+    return d_theta, d_pos, final_theta, final_pos
 
 
 def sim_eval_batch_2d(

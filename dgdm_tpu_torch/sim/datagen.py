@@ -14,7 +14,9 @@ package loads in the other.
 scene went up through pinned memory, and the results' copies into pinned
 host buffers are queued behind the kernel with an event, so that
 ``fetch_pairs_2d`` waits for this batch alone (``core/transfer.py``);
-``sim/pipeline.py`` bakes the next batch meanwhile.
+``sim/pipeline.py`` bakes the next batch meanwhile. ``use_pallas=False``
+runs the pure engine (``engine2d.profile_batch``) instead, ``chunk`` poses at
+a time, as the JAX package's calibrated path does.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from dgdm_tpu_torch.core.transfer import Stamp, download_async, upload, wait
 from dgdm_tpu_torch.geom.fingers import ctrlpts_2d, sample_gripper_2d
 from dgdm_tpu_torch.geom.spline import cubic_basis_matrix
 from dgdm_tpu_torch.sim import engine2d, rollout2d
-from dgdm_tpu_torch.sim.types import Scene2D
+from dgdm_tpu_torch.sim.types import Scene2D, to_device
 
 OUT_KEYS_2D = ("delta_theta", "delta_pos", "final_theta")
 
@@ -93,18 +95,36 @@ def gap_seconds(res: Dict, later: Dict) -> float:
 def profile_pairs_2d(
     scenes: Scene2D,
     poses: np.ndarray,
+    chunk: int = 1500,
     calib: Optional[engine2d.Calib] = None,
+    use_pallas: bool = True,
     block: bool = True,
     device="cuda",
 ) -> Dict:
     """Run the full pose grid for a stacked scene batch on ``device``.
 
+    Default path: the rollout kernel (its plain version for CPU tensors),
+    the pose batch padded to a multiple of 128. ``use_pallas=False``: the
+    pure engine, ``chunk`` poses a call (bounds the live intermediates).
+
     Returns dict with delta_theta (B, N), delta_pos (B, N, 2), final_theta.
     With ``block=False`` it returns once the work is queued (CUDA launches
     are asynchronous): materialize with ``fetch_pairs_2d``."""
-    arrs = rollout2d.scene_arrays(scenes, calib=calib, device=device)
-    res = launch(lambda p: rollout2d.profile_batch(*arrs, p)[:3],
-                 OUT_KEYS_2D, poses, device)
+    if use_pallas:
+        arrs = rollout2d.scene_arrays(scenes, calib=calib, device=device)
+
+        def run(p):
+            return rollout2d.profile_batch(*arrs, p)[:3]
+    else:
+        n = poses.shape[0]
+        sc = to_device(scenes, device)
+
+        def run(p):
+            outs = [engine2d.profile_batch(sc, p[lo:min(lo + chunk, n)],
+                                           calib=calib)
+                    for lo in range(0, n, chunk)]
+            return [torch.cat([o[k] for o in outs], dim=1) for k in range(3)]
+    res = launch(run, OUT_KEYS_2D, poses, device)
     return res if not block else fetch_pairs_2d(res)
 
 
@@ -194,12 +214,13 @@ def throughput_workload(
     num_pairs: int = 32,
     grid_size: int = SIM.grid_size,
     num_pos: int = SIM.num_pos,
+    chunk: int = 1500,
     contour: Optional[np.ndarray] = None,
+    use_pallas: bool = True,
     device="cuda",
 ):
     """A ready-to-run closure for timing rollout throughput -> (run,
-    rollouts per call). The JAX version's ``chunk`` and ``use_pallas``
-    select its pure-JAX engine, which the port does not have."""
+    rollouts per call); ``chunk``/``use_pallas`` as ``profile_pairs_2d``."""
     if contour is None:
         # deterministic synthetic object (no Icons-50 needed)
         ang = np.linspace(0, 2 * np.pi, 100, endpoint=False)
@@ -212,6 +233,7 @@ def throughput_workload(
     poses = engine2d.pose_grid(grid_size=grid_size, num_pos=num_pos)
 
     def run():
-        return profile_pairs_2d(scenes, poses, device=device)
+        return profile_pairs_2d(scenes, poses, chunk=chunk,
+                                use_pallas=use_pallas, device=device)
 
     return run, num_pairs * poses.shape[0]

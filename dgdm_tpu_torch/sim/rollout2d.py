@@ -12,10 +12,15 @@ shared pose batch and runs every (pair, pose) rollout for all steps:
 
 The kernel gives a rollout 16 threads of a warp (a 128-pose group is one
 thread block cluster) and holds each thread's per-point contact geometry in
-shared memory; ``LAST_PLAN`` holds the layout of the last launch.
+shared memory; ``LAST_PLAN`` holds the layout of the last launch. It has two
+instantiations, one per contact solver (``engine2d.SOLVER``, resolved at
+call time unless ``solver`` is given): the coupled Newton solve and the
+projected Jacobi solve (``pallas2d.py:221-334``), whose per-point
+accumulators also live in the shared-memory slab.
 
 There is no fallback between the two: a CUDA tensor launches the kernel or
-raises. ``KERNEL_LAUNCHES["rollout2d"]`` counts kernel launches.
+raises. ``KERNEL_LAUNCHES`` counts kernel launches per instantiation:
+``"rollout2d"`` (Newton) and ``"rollout2d_jacobi"``.
 """
 
 from __future__ import annotations
@@ -36,10 +41,13 @@ from dgdm_tpu_torch.sim.rollout2d_ref import (
     LANE,
     N_SCALARS,
     profile_batch_ref,
+    resolve_solver,
 )
 
 # kernel launches per wrapper, for showing that a run went through them
-KERNEL_LAUNCHES = {"rollout2d": 0}
+KERNEL_LAUNCHES = {"rollout2d": 0, "rollout2d_jacobi": 0}
+# the launch counter of each contact solver's instantiation
+COUNTER = {"newton": "rollout2d", "jacobi": "rollout2d_jacobi"}
 # threads per rollout, blocks per cluster, threads per block,
 # cudaOccupancyMaxActiveClusters and bytes of shared memory a block, of the
 # last launch
@@ -52,11 +60,17 @@ class _Params(ctypes.Structure):
     """Mirror of ``Rollout2DParams`` in csrc/rollout2d.cu."""
 
     _fields_ = [(k, ctypes.c_int) for k in
-                ("steps", "regrasp_every", "snapshot_step", "newton_iters")] + [
+                ("steps", "regrasp_every", "snapshot_step", "newton_iters",
+                 "solver", "solver_iters")] + [
         (k, ctypes.c_float) for k in
         ("dt", "ctrl_l", "ctrl_r", "x0f", "x1f", "h", "inv_h", "surf_l0",
          "surf_r0", "kp", "damping", "plane_z", "gravity", "k_plane",
-         "b_plane", "depth_el_cap", "impedance", "eps_settled", "marg")]
+         "b_plane", "depth_el_cap", "impedance", "eps_settled", "marg",
+         "k_base", "b_base", "rough_sat")]
+
+
+# the kernel's instantiation of each contact solver (csrc/rollout2d.cu)
+SOLVER_CODES = {"newton": 0, "jacobi": 1}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -69,20 +83,22 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIBRARY = CudaLibrary("rollout2d.cu", _bind)
 
 
-def _params(steps, regrasp_every, snapshot_step) -> _Params:
+def _params(steps, regrasp_every, snapshot_step, solver) -> _Params:
     g = GRIPPER_2D
     h = (g.ctrl_x_max - g.ctrl_x_min) / (g.num_ctrl - 1)
     ctrl_l = min(SIM.ctrl_2d, g.ctrl_clamped)
     return _Params(
         steps=steps, regrasp_every=regrasp_every, snapshot_step=snapshot_step,
-        newton_iters=engine2d.NEWTON_ITERS, dt=SIM.dt, ctrl_l=ctrl_l,
+        newton_iters=engine2d.NEWTON_ITERS, solver=SOLVER_CODES[solver],
+        solver_iters=engine2d.SOLVER_ITERS, dt=SIM.dt, ctrl_l=ctrl_l,
         ctrl_r=-ctrl_l,
         x0f=g.ctrl_x_min, x1f=g.ctrl_x_max, h=h, inv_h=1.0 / h,
         surf_l0=-g.jaw_offset + g.width, surf_r0=g.jaw_offset, kp=g.kp,
         damping=g.joint_damping, plane_z=SIM.plane_z, gravity=SIM.gravity,
         k_plane=engine2d.K_PLANE, b_plane=engine2d.B_PLANE,
         depth_el_cap=engine2d.DEPTH_EL_CAP, impedance=engine2d.IMPEDANCE,
-        eps_settled=EPS_SETTLED, marg=1e-4,
+        eps_settled=EPS_SETTLED, marg=1e-4, k_base=engine2d.K_CONTACT,
+        b_base=engine2d.B_CONTACT, rough_sat=engine2d.ROUGH_SAT,
     )
 
 
@@ -108,8 +124,12 @@ def _check_inputs(coefs, contour, support, scalars, poses):
 
 
 def rollout_cuda(coefs, contour, support, scalars, poses, steps,
-                 regrasp_every, snapshot_step):
-    """Launch csrc/rollout2d.cu on the current stream -> (8, B, N) float32."""
+                 regrasp_every, snapshot_step, solver=None):
+    """Launch csrc/rollout2d.cu on the current stream -> (8, B, N) float32.
+    The launcher refuses a point count whose shared-memory slab does not
+    fit a block: on the H100 P > 384 (Newton) or, with 64 supports, P > 272
+    (Jacobi, 12 floats a contour point and 3 a support point)."""
+    solver = resolve_solver(solver)
     lib = LIBRARY.get()
     ins = [t.contiguous() for t in (coefs, contour, support, scalars, poses)]
     b, p, s, n = coefs.shape[0], contour.shape[1], support.shape[1], \
@@ -119,50 +139,56 @@ def rollout_cuda(coefs, contour, support, scalars, poses, steps,
     plan = (ctypes.c_int * 5)()
     err = lib.rollout2d_launch(
         *[t.data_ptr() for t in ins], out.data_ptr(), b, p, s, n,
-        _params(steps, regrasp_every, snapshot_step), ctypes.byref(plan),
+        _params(steps, regrasp_every, snapshot_step, solver),
+        ctypes.byref(plan),
         stream)
     LAST_PLAN.update(zip(("threads_per_rollout", "cluster", "threads",
                           "max_active_clusters", "shared_bytes"), plan))
     if err != 0:
         raise RuntimeError(
             f"rollout2d kernel launch failed: CUDA error {err} (launch plan "
-            f"{LAST_PLAN}; the shared memory a block needs grows with the "
-            f"point count, {p} here)")
-    KERNEL_LAUNCHES["rollout2d"] += 1
+            f"{LAST_PLAN}, solver {solver}; the shared memory a block needs "
+            f"grows with the point count, {p} here)")
+    KERNEL_LAUNCHES[COUNTER[solver]] += 1
     return out
 
 
 def rollout(coefs, contour, support, scalars, poses,
             steps: int = SIM.steps_2d, regrasp_every: int = 0,
-            snapshot_step: int = 0) -> Tuple[torch.Tensor, ...]:
+            snapshot_step: int = 0,
+            solver: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
     """The 8 raw (B, N) outputs: dtheta, dpx, dpy (snapshot), final theta,
-    final x, final y, full-solve and cheap-solve step counts per block."""
+    final x, final y, full-solve and cheap-solve step counts per block.
+    ``solver``: "newton" or "jacobi"; None reads ``engine2d.SOLVER`` now."""
     _check_inputs(coefs, contour, support, scalars, poses)
+    solver = resolve_solver(solver)
     if poses.device.type == "cuda":
         return tuple(rollout_cuda(coefs, contour, support, scalars, poses,
-                                  steps, regrasp_every, snapshot_step))
+                                  steps, regrasp_every, snapshot_step,
+                                  solver))
     if poses.device.type == "cpu":
         return profile_batch_ref(coefs, contour, support, scalars, poses,
                                  steps=steps, regrasp_every=regrasp_every,
-                                 snapshot_step=snapshot_step)
+                                 snapshot_step=snapshot_step, solver=solver)
     raise ValueError(f"no rollout path for device {poses.device}")
 
 
 def profile_batch(coefs, contour, support, scalars, poses,
                   steps: int = SIM.steps_2d, regrasp_every: int = 0,
-                  snapshot_step: int = 0):
+                  snapshot_step: int = 0, solver: Optional[str] = None):
     """Fused rollouts: (B pairs) x (N poses) -> (dtheta (B, N),
     dpos (B, N, 2), final_theta (B, N), final_pos (B, N, 2)); ``rollout``
     also returns the (full, cheap) solve counts per block.
 
     ``snapshot_step`` > 0 records dtheta/dpos at that step (the first-squeeze
     profile of the eval schedule) while the rollout continues to ``steps``;
-    0 snapshots at the end (datagen). The contact solver is the coupled
-    Newton solve (the JAX package's default, ``engine2d.SOLVER``); its
-    ``solver="jacobi"`` is not ported yet."""
+    0 snapshots at the end (datagen). The contact solver is ``solver`` or,
+    when None, ``engine2d.SOLVER`` at call time (as the JAX package's
+    ``profile_batch_pallas`` resolves it)."""
     dth, dpx, dpy, fth, fpx, fpy, _, _ = rollout(
         coefs, contour, support, scalars, poses, steps=steps,
-        regrasp_every=regrasp_every, snapshot_step=snapshot_step)
+        regrasp_every=regrasp_every, snapshot_step=snapshot_step,
+        solver=solver)
     return (dth, torch.stack([dpx, dpy], dim=-1), fth,
             torch.stack([fpx, fpy], dim=-1))
 
@@ -195,14 +221,10 @@ def scene_arrays(scenes, calib: Optional[engine2d.Calib] = None,
     scal[:, 0, 3] = com[:, 0]
     scal[:, 0, 4] = com[:, 1]
     scal[:, 0, 5] = fmass[..., 1]
-    scal[:, 0, 6] = calib.mu_plane
-    scal[:, 0, 7] = calib.mu_finger
-    scal[:, 0, 8] = calib.mu_torsion
-    scal[:, 0, 9] = calib.k_contact
-    scal[:, 0, 10] = calib.b_contact
-    scal[:, 0, 11] = calib.unload
-    scal[:, 0, 12] = calib.rough
-    scal[:, 0, 13] = calib.c_r
+    for k, name in enumerate(("mu_plane", "mu_finger", "mu_torsion",
+                              "k_contact", "b_contact", "unload", "rough",
+                              "c_r"), start=6):
+        scal[:, 0, k] = float(getattr(calib, name))
     # broad-phase bounds of the no-contact fast path: finger contact is
     # impossible unless cy <= A + ql (left) or cy >= B + qr (right); A/B fold
     # the dense-grid spline extremum (padded by 1e-3) and the object's max

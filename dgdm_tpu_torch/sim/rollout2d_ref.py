@@ -1,12 +1,15 @@
 """Plain PyTorch version of the 2D rollout kernel (K1) — the same math as
-``dgdm_tpu/sim/pallas2d.py:_rollout_kernel`` (Newton solver), on dense
-tensors, with a Python step loop.
+``dgdm_tpu/sim/pallas2d.py:_rollout_kernel``, both contact solvers (the
+coupled Newton solve, and ``solver="jacobi"``: projected Jacobi with the
+explicit elastic wedge impulse, ``pallas2d.py:221-334``), on dense tensors,
+with a Python step loop.
 
 Layout: lanes are poses, grouped in blocks of ``LANE`` = 128 exactly as the
 Pallas grid groups them. Per-lane state is (B, NB, L); per-contour-point
 work is (B, NB, P, L); plane-support work is (B, NB, S, L). The two
 block-uniform branches of the Pallas kernel (settled travel vs a normal
-step; full vs cheap solve) are decided per (pair, 128-pose block) with the
+step; full vs cheap solve, Newton only: every normal Jacobi step is a full
+solve) are decided per (pair, 128-pose block) with the
 same reductions, and applied with ``torch.where``: a block's lanes take one
 branch together, so a lane's result depends on its block-mates exactly as in
 the TPU kernel and in ``csrc/rollout2d.cu``.
@@ -27,17 +30,22 @@ the H100). State and elementwise physics stay float32.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from dgdm_tpu_torch.core.config import GRIPPER_2D, SIM
+from dgdm_tpu_torch.sim import engine2d
 from dgdm_tpu_torch.sim.engine2d import (
+    B_CONTACT,
     B_PLANE,
     DEPTH_EL_CAP,
     IMPEDANCE,
+    K_CONTACT,
     K_PLANE,
     NEWTON_ITERS,
+    ROUGH_SAT,
+    SOLVER_ITERS,
 )
 from dgdm_tpu_torch.sim.point_sum import point_sum
 
@@ -58,6 +66,17 @@ def _block_any(mask: torch.Tensor) -> torch.Tensor:
     return mask.any(dim=-1, keepdim=True)
 
 
+def resolve_solver(solver: Optional[str]) -> str:
+    """``solver`` or, when None, ``engine2d.SOLVER`` at call time (as
+    ``pallas2d.profile_batch_pallas`` resolves it); an unknown one raises."""
+    if solver is None:
+        solver = engine2d.SOLVER
+    if solver not in engine2d.SOLVERS:
+        raise ValueError(f"unknown contact solver {solver!r}; one of "
+                         f"{engine2d.SOLVERS}")
+    return solver
+
+
 def _hub(v, w, cap):
     q = 0.5 * w * v * v
     lin = cap * torch.abs(v) - 0.5 * cap * cap / torch.clamp(w, min=1e-12)
@@ -74,12 +93,15 @@ def profile_batch_ref(
     regrasp_every: int = 0,
     snapshot_step: int = 0,
     sum_group: int = 0,
+    solver: Optional[str] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Returns 8 (B, N) float32 tensors: dtheta, dpx, dpy at the snapshot;
     final theta (in [0, 2pi)), final origin x, y; and the per-block full and
     cheap solve step counts (lane-broadcast). ``sum_group`` = G adds the
     point sums in the order of the CUDA kernel with G threads a rollout (0:
-    ``torch.sum``'s own; ``point_sum``)."""
+    ``torch.sum``'s own; ``point_sum``). ``solver``: "newton" or "jacobi",
+    None for ``engine2d.SOLVER``."""
+    solver = resolve_solver(solver)
     g = GRIPPER_2D
     dt = SIM.dt
     x0f, x1f = g.ctrl_x_min, g.ctrl_x_max
@@ -438,6 +460,115 @@ def profile_batch_ref(
                 zb + dt * vz, vz, ql + dt * qdl, qr + dt * qdr, qdl, qdr,
                 cnt_f, cnt_c)
 
+    def jacobi_step(cx, cy, th, vx, vy, om, zb, vz, ql, qr, qdl, qdr,
+                    cnt_f, cnt_c):
+        # projected Jacobi (pallas2d.py:221-334): every normal step is a
+        # full solve of the merged contact set
+        c, s = torch.cos(th), torch.sin(th)
+        depth_z = SIM.plane_z - zb
+        n_total = mass * torch.clamp(K_PLANE * depth_z - B_PLANE * vz, min=0.0)
+        c4, s4 = c[:, :, None], s[:, :, None]
+        rsx = sbx * c4 - sby * s4                       # (B, NB, S, L)
+        rsy = sbx * s4 + sby * c4
+        (rx, ry, is_l, depth, nx, ny, act, rxn, tx_, ty_, rxt,
+         me_n, me_t, vn0) = contact_geometry(cx, cy, c, s, ql, qr,
+                                             vx, vy, om, qdl, qdr)
+        sl = is_l.to(torch.float32)
+        sr = 1.0 - sl
+        cnt = torch.clamp(rsum(act), min=1.0)[:, :, None]
+        w_c = act / cnt
+        # implicit stopping target from the base solref gains; the calib
+        # gains drive the explicit elastic wedge term
+        tgt = (1.0 - d_imp * B_CONTACT * dt) * vn0 \
+            + d_imp * dt * K_CONTACT * depth
+        depth_el = act * torch.clamp(depth, 0.0, DEPTH_EL_CAP)
+        v_capn = d_imp * dt * k_con * depth_el
+        dv_el = torch.minimum(
+            torch.clamp(d_imp * dt * (k_con * depth_el - b_con * vn0),
+                        min=0.0),
+            torch.clamp(v_capn - vn0, min=0.0))
+        imp_el = act * me_n * dv_el
+        # global energy clamp on the summed elastic wrench: a min over the
+        # rollout's points (exact in any order)
+        dvx_u = rsum(imp_el * nx) * inv_m
+        dvy_u = rsum(imp_el * ny) * inv_m
+        dom_u = rsum(imp_el * rxn) * inv_i
+        dqdl_u = -rsum(sl * imp_el * ny) * inv_fml
+        dqdr_u = -rsum(sr * imp_el * ny) * inv_fmr
+        dqd_pt = torch.where(is_l, dqdl_u[:, :, None], dqdr_u[:, :, None])
+        dvn_ind = ((dvx_u[:, :, None] - dom_u[:, :, None] * ry) * nx
+                   + (dvy_u[:, :, None] + dom_u[:, :, None] * rx - dqd_pt)
+                   * ny)
+        headroom = torch.clamp(v_capn - vn0, min=0.0)
+        ratio = torch.where((act > 0) & (dvn_ind > 1e-9),
+                            headroom / (dvn_ind + 1e-9),
+                            torch.full_like(dvn_ind, math.inf))
+        s_el = torch.clamp(ratio.amin(dim=2, keepdim=True), 0.0, 1.0)
+        imp_el = s_el * imp_el
+        # mean-field plane unloading from the grip load
+        grip = rsum(imp_el) / (dt * mass * SIM.gravity)
+        n_i = sw * n_total[:, :, None] / (1.0 + unload * grip[:, :, None])
+
+        f_l = g.kp * (ctrl_l - ql) - g.joint_damping * qdl
+        f_r = g.kp * (ctrl_r - qr) - g.joint_damping * qdr
+        vx = vx + rsum(imp_el * nx) * inv_m
+        vy = vy + rsum(imp_el * ny) * inv_m
+        om = om + rsum(imp_el * rxn) * inv_i
+        vz = vz + dt * (-SIM.gravity + n_total * inv_m)
+        qdl = qdl + dt * f_l * inv_fml - rsum(sl * imp_el * ny) * inv_fml
+        qdr = qdr + dt * f_r * inv_fmr - rsum(sr * imp_el * ny) * inv_fmr
+
+        wcn, wct = w_c * me_n, w_c * me_t
+        cap_r = rough * me_t * torch.clamp(depth_el, max=ROUGH_SAT)
+        cap_s = mu_plane * n_i * dt
+        cap_w = mu_torsion * n_i * dt
+        lam_n = torch.zeros_like(depth)
+        lam_t = torch.zeros_like(depth)
+        lam_sx = torch.zeros_like(n_i)
+        lam_sy = torch.zeros_like(n_i)
+        lam_w = torch.zeros_like(n_i)
+        for _it in range(SOLVER_ITERS):
+            qd_cc = torch.where(is_l, qdl[:, :, None], qdr[:, :, None])
+            vpx = vx[:, :, None] - om[:, :, None] * ry
+            vpy = vy[:, :, None] + om[:, :, None] * rx - qd_cc
+            vn = vpx * nx + vpy * ny
+            vt = vpx * tx_ + vpy * ty_
+            new_n = torch.clamp(lam_n + wcn * (tgt - vn), min=0.0)
+            d_n = new_n - lam_n
+            cap = mu_finger * (new_n + imp_el) + cap_r
+            new_t = torch.minimum(torch.maximum(lam_t - wct * vt, -cap), cap)
+            d_t = new_t - lam_t
+            imp_x = d_n * nx + d_t * tx_
+            imp_y = d_n * ny + d_t * ty_
+            vx = vx + rsum(imp_x) * inv_m
+            vy = vy + rsum(imp_y) * inv_m
+            om = om + rsum(d_n * rxn + d_t * rxt) * inv_i
+            qdl = qdl - rsum(sl * imp_y) * inv_fml
+            qdr = qdr - rsum(sr * imp_y) * inv_fmr
+            lam_n, lam_t = new_n, new_t
+
+            # plane friction
+            vsx = vx[:, :, None] - om[:, :, None] * rsy
+            vsy = vy[:, :, None] + om[:, :, None] * rsx
+            nsx = lam_sx - sw * m4 * vsx
+            nsy = lam_sy - sw * m4 * vsy
+            nrm = torch.sqrt(nsx * nsx + nsy * nsy + 1e-20)
+            sc = torch.clamp(cap_s / nrm, max=1.0)
+            nsx, nsy = nsx * sc, nsy * sc
+            d_sx, d_sy = nsx - lam_sx, nsy - lam_sy
+            vx = vx + rsum(d_sx) * inv_m
+            vy = vy + rsum(d_sy) * inv_m
+            om = om + rsum(rsx * d_sy - rsy * d_sx) * inv_i
+            lam_sx, lam_sy = nsx, nsy
+            new_w = torch.minimum(
+                torch.maximum(lam_w - sw * i4 * om[:, :, None], -cap_w),
+                cap_w)
+            om = om + rsum(new_w - lam_w) * inv_i
+            lam_w = new_w
+        return (cx + dt * vx, cy + dt * vy, th + dt * om, vx, vy, om,
+                zb + dt * vz, vz, ql + dt * qdl, qr + dt * qdr, qdl, qdr,
+                cnt_f + 1.0, cnt_c)
+
     def travel_step(cx, cy, th, vx, vy, om, zb, vz, ql, qr, qdl, qdr,
                     cnt_f, cnt_c):
         # settled-travel fast path: only the finger servos advance
@@ -448,6 +579,7 @@ def profile_batch_ref(
         return (cx, cy, th, vx, vy, om, zb, vz,
                 ql + dt * qdl, qr + dt * qdr, qdl, qdr, cnt_f, cnt_c)
 
+    solve_step = normal_step if solver == "newton" else jacobi_step
     for i in range(steps):
         is_rg = bool(regrasp_every) and i % regrasp_every == 0 and i > 0
         if is_rg:
@@ -474,10 +606,10 @@ def profile_batch_ref(
         if bool(travel.all()):
             st = travel_step(*st)
         elif not bool(travel.any()):
-            st = normal_step(*st)
+            st = solve_step(*st)
         else:
             st = tuple(torch.where(travel, a_, n_) for a_, n_ in
-                       zip(travel_step(*st), normal_step(*st)))
+                       zip(travel_step(*st), solve_step(*st)))
         (cx, cy, th, vx, vy, om, zb, vz, ql, qr, qdl, qdr,
          cnt_f, cnt_c) = st
         if i + 1 == snapshot_step:

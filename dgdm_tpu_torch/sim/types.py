@@ -1,10 +1,12 @@
-"""Scene containers — port of ``dgdm_tpu/sim/types.py`` (``Scene2D``,
-``Scene3D``).
+"""Scene and state containers — port of ``dgdm_tpu/sim/types.py``
+(``Scene2D``, ``State2D``, ``Scene3D``).
 
 One scene holds everything static about an object x gripper pair as dense
 tensors; a batch of pairs is the same dataclass with a leading dimension
 (``datagen.stack_scenes``). A plain dataclass of tensors takes the place of
-the JAX package's ``flax.struct`` pytree. ``Scene3D`` holds the fields that
+the JAX package's ``flax.struct`` pytree; ``State2D`` likewise carries any
+leading batch shape (pairs x poses in the pure 2D engine) in front of the
+per-rollout shapes noted beside its fields. ``Scene3D`` holds the fields that
 the 3D rollout kernel's inputs read; the JAX scene's baked height grid
 (``hgrid``, read only by the pure-JAX ``engine3d.step*``) and its unused
 ``bottom_pts`` wait for the port of that engine.
@@ -15,6 +17,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+
+def to_device(obj, device):
+    """A scene or state dataclass with every tensor moved to ``device``."""
+    return type(obj)(**{f.name: getattr(obj, f.name).to(device)
+                        for f in dataclasses.fields(obj)})
 
 
 @dataclasses.dataclass
@@ -32,6 +40,20 @@ class Scene2D:
     finger_mass: torch.Tensor   # (2,) per-jaw mass (left, right)
     anchor: torch.Tensor        # (P,) or (1,) per-vertex crack-fan anchor
                                 # weights; (1,) of 1.0 = uniform
+
+
+@dataclasses.dataclass
+class State2D:
+    """State of one planar rollout (fields carry a leading batch shape)."""
+
+    com: torch.Tensor           # (2,) object COM, world frame
+    theta: torch.Tensor         # () orientation (continuous, unwrapped)
+    vel: torch.Tensor           # (2,) COM velocity
+    om: torch.Tensor            # () angular velocity
+    zb: torch.Tensor            # () object bottom-face height
+    vz: torch.Tensor            # () vertical velocity
+    q: torch.Tensor             # (2,) finger slide positions (left, right)
+    qd: torch.Tensor            # (2,) finger velocities
 
 
 @dataclasses.dataclass

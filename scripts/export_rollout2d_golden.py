@@ -11,9 +11,12 @@ under the two schedules the port must reproduce:
 and writes ``tests/fixtures/rollout2d_golden.npz``: the scene arrays, the
 poses and all 8 kernel outputs of each schedule. The port's tests hold the
 plain PyTorch version to it on the CPU, and ``chip_smoke.py`` holds the CUDA
-kernel to it on the card, which needs no JAX.
+kernel to it on the card, which needs no JAX. ``--solver jacobi`` runs the
+kernel's Jacobi branch instead, with ``engine2d.SOLVER`` set to it so that
+the scene arrays carry its calibration (``FITTED_2D``), and writes
+``tests/fixtures/rollout2d_jacobi_golden.npz``.
 
-    JAX_PLATFORMS=cpu python scripts/export_rollout2d_golden.py
+    JAX_PLATFORMS=cpu python scripts/export_rollout2d_golden.py [--solver jacobi]
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ def golden_inputs(icon_seed: int = 3, grippers=(0, 1), n: int = 128):
     return arrs, poses
 
 
-def run_pallas_interpret(arrs, poses, steps, regrasp_every, snapshot_step):
+def run_pallas_interpret(arrs, poses, steps, regrasp_every, snapshot_step,
+                         solver="newton"):
     """All 8 kernel outputs, (B, N) each, from the interpreted TPU kernel."""
     orig = pl.pallas_call
 
@@ -67,7 +71,7 @@ def run_pallas_interpret(arrs, poses, steps, regrasp_every, snapshot_step):
         dth, dpos, fth, fpos, (cf, cc) = pallas2d.profile_batch_pallas(
             *[jnp.asarray(a) for a in arrs], jnp.asarray(poses), steps=steps,
             regrasp_every=regrasp_every, snapshot_step=snapshot_step,
-            return_step_mix=True)
+            return_step_mix=True, solver=solver)
     dpos, fpos = np.asarray(dpos), np.asarray(fpos)
     return [np.asarray(dth), dpos[..., 0], dpos[..., 1], np.asarray(fth),
             fpos[..., 0], fpos[..., 1], np.asarray(cf), np.asarray(cc)]
@@ -75,20 +79,29 @@ def run_pallas_interpret(arrs, poses, steps, regrasp_every, snapshot_step):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "tests", "fixtures", "rollout2d_golden.npz"))
+    ap.add_argument("--solver", default="newton", choices=["newton", "jacobi"])
+    ap.add_argument("--out", default=None, help="default: tests/fixtures/"
+                    "rollout2d_golden.npz, rollout2d_jacobi_golden.npz with "
+                    "--solver jacobi")
     args = ap.parse_args(argv)
+    if args.out is None:
+        name = ("rollout2d_golden.npz" if args.solver == "newton"
+                else "rollout2d_jacobi_golden.npz")
+        args.out = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "tests", "fixtures", name)
+    engine2d.SOLVER = args.solver
     arrs, poses = golden_inputs()
     data = dict(zip(("coefs", "contour", "support", "scalars"), arrs))
     data["poses"] = poses
     for name, steps, rg, snap in SCHEDULES:
         data[f"{name}_schedule"] = np.asarray([steps, rg, snap], np.int64)
-        outs = run_pallas_interpret(arrs, poses, steps, rg, snap)
+        outs = run_pallas_interpret(arrs, poses, steps, rg, snap, args.solver)
         for k, v in zip(OUT_NAMES, outs):
             data[f"{name}_{k}"] = v.astype(np.float32)
         print(f"{name}: max|dth| {np.abs(outs[0]).max():.4f}, full/cheap "
               f"steps per block {outs[6][:, 0]} / {outs[7][:, 0]}")
+    data["solver"] = np.asarray(args.solver)
     np.savez_compressed(args.out, **data)
     print("wrote", args.out)
 

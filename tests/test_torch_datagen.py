@@ -13,7 +13,8 @@ pipeline.py) on the CPU, where the rollouts are the kernels' plain versions:
   ``rollout3d.profile_batch`` bit for bit, the pipeline's records and
   shards the one-shot path's, and a pair with any tipped rollout maps to
   None and writes no shard (the give-up);
-- throughput_workload runs and counts its rollouts.
+- throughput_workload runs and counts its rollouts, through the kernel's
+  route and through the pure engine's (``use_pallas=False``).
 
 The 3D cases run 40 steps, not the 800 a parity test needs: they compare
 two compositions of the same rollout function on the same arrays (record
@@ -184,9 +185,23 @@ def test_generate_and_pipeline_3d(tmp_path):
     assert rec["object_name"] == "mug_small"
 
 
-def test_throughput_workload():
+@pytest.mark.parametrize("use_pallas", [True, False],
+                         ids=["kernel", "pure_engine"])
+def test_throughput_workload(use_pallas):
+    """Both routes count their rollouts; ``use_pallas=False`` runs the pure
+    engine in chunks of 5 poses (the last one short) and never the
+    kernel's wrapper."""
     run, total = datagen.throughput_workload(num_pairs=2, grid_size=8,
-                                             num_pos=1, device="cpu")
-    out = run()
+                                             num_pos=1, chunk=5,
+                                             use_pallas=use_pallas,
+                                             device="cpu")
+    if use_pallas:
+        out = run()
+    else:
+        with mock.patch.object(datagen.rollout2d, "profile_batch",
+                               side_effect=AssertionError("kernel route")):
+            out = run()
     assert total == 16 and out["delta_theta"].shape == (2, 8)
+    assert out["delta_pos"].shape == (2, 8, 2)
     assert np.isfinite(out["delta_pos"]).all()
+    assert np.abs(out["delta_theta"]).max() > 1e-2

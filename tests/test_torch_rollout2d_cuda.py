@@ -1,5 +1,6 @@
-"""The CUDA rollout kernel (K1, csrc/rollout2d.cu) on the card, held to its
-plain PyTorch version and to the golden outputs of the TPU kernel.
+"""The CUDA rollout kernel (K1, csrc/rollout2d.cu) on the card, both
+instantiations (Newton, Jacobi), held to its plain PyTorch version and to
+the golden outputs of the TPU kernel.
 
 Imports no JAX, so it runs on a GPU host without it; the repository's
 tests/conftest.py does import JAX, so there run it without the conftest:
@@ -15,7 +16,7 @@ from dgdm_tpu_torch.sim import rollout2d
 from dgdm_tpu_torch.sim.rollout2d_ref import profile_batch_ref
 # a sibling module, imported by its own name: pytest puts tests/ on the path
 # (no package), and another installed ``tests`` package may shadow this one
-from torch_parity import NAMES, assert_k1_parity, golden
+from torch_parity import GOLDEN_JACOBI, NAMES, assert_k1_parity, golden
 
 
 @pytest.mark.cuda
@@ -87,3 +88,51 @@ def test_cuda_kernel_rejects_bad_inputs():
         rollout2d.rollout(*arrs, poses[:100])
     with pytest.raises(ValueError):
         rollout2d.rollout(*arrs, poses.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["datagen", "eval"])
+def test_cuda_jacobi_matches_plain_bitwise_and_golden(schedule):
+    """The Jacobi instantiation: bitwise equal, on all 8 output planes, to
+    the plain version in the kernel's summation order, and within the bars
+    of the Jacobi golden fixture; every normal step is a full solve."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the rollout kernel runs on the card")
+    g = rollout2d.THREADS_PER_ROLLOUT
+    z, arrs, poses = golden(GOLDEN_JACOBI)
+    steps, rg, snap = (int(v) for v in z[f"{schedule}_schedule"])
+    arrs, poses = [a.cuda() for a in arrs], poses.cuda()
+    before = rollout2d.KERNEL_LAUNCHES["rollout2d_jacobi"]
+    out = rollout2d.rollout(*arrs, poses, steps=steps, regrasp_every=rg,
+                            snapshot_step=snap, solver="jacobi")
+    torch.cuda.synchronize()
+    assert rollout2d.KERNEL_LAUNCHES["rollout2d_jacobi"] == before + 1
+    ref = profile_batch_ref(*arrs, poses, steps=steps, regrasp_every=rg,
+                            snapshot_step=snap, sum_group=g, solver="jacobi")
+    for k, a, b in zip(NAMES, out, ref):
+        assert torch.equal(a, b), f"{k} differs from the plain version"
+    out = {k: v.cpu().numpy() for k, v in zip(NAMES, out)}
+    assert (out["ccheap"] == 0).all()
+    assert_k1_parity(out, {k: z[f"{schedule}_{k}"] for k in NAMES})
+
+
+@pytest.mark.cuda
+def test_cuda_jacobi_refuses_more_points_than_fit():
+    """Jacobi holds 12 floats a contour point and 3 a support point: 300
+    contour points (19 a lane) do not fit a block's shared memory, where
+    the Newton slab (9 floats a point) does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the rollout kernel runs on the card")
+    _, arrs, poses = golden(GOLDEN_JACOBI)
+    arrs, poses = [a.cuda() for a in arrs], poses.cuda()
+    big = arrs[1].repeat(1, 3, 1)
+    before = rollout2d.KERNEL_LAUNCHES["rollout2d_jacobi"]
+    with pytest.raises(RuntimeError, match="point count"):
+        rollout2d.rollout_cuda(arrs[0], big, *arrs[2:], poses, 200, 0, 0,
+                               "jacobi")
+    assert rollout2d.KERNEL_LAUNCHES["rollout2d_jacobi"] == before
+    newton = rollout2d.KERNEL_LAUNCHES["rollout2d"]
+    rollout2d.rollout_cuda(arrs[0], big, *arrs[2:], poses, 10, 0, 0,
+                           "newton")
+    torch.cuda.synchronize()
+    assert rollout2d.KERNEL_LAUNCHES["rollout2d"] == newton + 1

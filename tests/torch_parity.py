@@ -14,6 +14,9 @@ torch.set_num_threads(1)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures",
                       "rollout2d_golden.npz")
+# the same scenes and poses through K1's Jacobi branch, with its calibration
+GOLDEN_JACOBI = os.path.join(os.path.dirname(__file__), "fixtures",
+                             "rollout2d_jacobi_golden.npz")
 NAMES = ("dth", "dpx", "dpy", "fth", "fpx", "fpy", "cfull", "ccheap")
 
 
@@ -38,9 +41,9 @@ def assert_k1_parity(out, ref, lane=128):
                                           np.asarray(ref[k])[:, ::lane])
 
 
-def golden():
+def golden(path=GOLDEN):
     """The fixture, its four scene arrays and its poses as CPU tensors."""
-    z = np.load(GOLDEN)
+    z = np.load(path)
     arrs = [torch.from_numpy(z[k]) for k in ("coefs", "contour", "support",
                                              "scalars")]
     return z, arrs, torch.from_numpy(z["poses"])
