@@ -98,13 +98,38 @@ Phases, each printing its own lines:
     verify shape with its depth cut to 1,000 steps (regrasp and snapshot at
     200) bitwise against the plain version, and the pure engine's cost a
     step (ms, kernels, the card's busy share from ``torch.profiler``);
-11. times and the summary.
+11. the JAX package's other 3D configuration (``engine3d.SOLVER3 =
+    "jacobi"``, restored after), launch counts reset before each main-path
+    call and read after: (a) K2's Jacobi instantiation through
+    ``profile_pairs_3d`` at the datagen shape (8 x 9,088 x 800, the Jacobi
+    calibration), held within the bars of
+    tests/fixtures/rollout3d_jacobi_golden.npz and bitwise against its
+    plain version over all 800 steps; its bound from
+    ``k2_jacobi_flops``; (b) the verification shape through
+    ``sim_eval_batch_3d`` (16 x 45 padded to 128 x 32,000, regrasp and
+    snapshot at 800): one Jacobi launch, the snapshot bitwise against the
+    kernel's own 800-step squeeze, the depth cut to 1,000 steps bitwise
+    against the plain version; (c) K2's adaptive-Newton instantiation
+    (``newton_iters`` 6, ``newton_tol`` 1e-4) through
+    ``rollout3d.profile_batch`` at the datagen shape, bitwise against its
+    plain version over all 800 steps and within its golden
+    fixture's bars, the iterations a full step per block beside the fixed
+    count's; (d) the pure 3D engine on
+    the card: ``profile_pairs_3d(use_pallas=False)`` on one 450-pose chunk
+    of the grid x 8 pairs x 800 steps under Newton and Jacobi, held against
+    K2 on the same pairs and poses (``engine_vs_kernel``),
+    ``eval_rollout_batch_3d`` at 16 x 45 with its depth cut to 1,600 steps
+    against K2's snapshot, ``rollout_trace3d``, each solver's cost a step
+    (ms, kernels, busy share from ``torch.profiler``) and one step card vs
+    CPU within 1e-5;
+12. times and the summary.
 
 Each kernel has one thread layout (K1 16 threads a rollout, K2 32; a
 128-pose group is a cluster of 8 blocks) and holds each thread's per-point
 contact geometry in shared memory; the layout of the launch is printed per
-shape. K1 is built in two instantiations (Newton, Jacobi); ``ptxas`` must
-report 0 bytes of spills for each.
+shape. K1 is built in two instantiations (Newton, Jacobi), K2 in three
+(Newton, Jacobi, Newton with ``newton_tol``); ``ptxas`` must report 0 bytes
+of spills for each.
 
 It then prints a ``{"kernels": [...]}`` line and, as its last line,
 ``{"ok": true, "device": {...}}``. It exits non-zero, without that line, if
@@ -140,6 +165,10 @@ MUG = os.path.join(ROOT, "tests", "fixtures", "scanned_objects", "mug_small",
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the share of lanes whose tip-over flag a Jacobi rollout must share with the
+# TPU kernel's, by schedule (the flag is the final one; see
+# tests/test_torch_rollout3d_jacobi.py)
+JACOBI_VALID_MIN = {"datagen": 0.95, "eval": 0.90}
 
 
 class PhaseClock:
@@ -577,9 +606,12 @@ def phases_3d(dev, clock: PhaseClock) -> dict:
           f"{report['verification']['seconds']:.1f}s); kernel launches "
           f"{launches}", flush=True)
     print(f"  one verification call of the loop (shift_up samples, "
-          f"mug_small): {call_s:.2f}s on the host clock, K2 "
-          f"{call_k_ms:.0f} ms of it; full-solve steps per block "
-          f"{call_full:.0f} of 32,000", flush=True)
+          f"mug_small): {call_s:.2f}s on the host clock (0.92 s in the "
+          f"earlier run PERF.md records; the kernel's path bakes no height "
+          f"grid), K2 "
+          f"{call_k_ms:.0f} ms of it, the host {call_s - call_k_ms / 1e3:.2f}"
+          f"s; full-solve steps per block {call_full:.0f} of 32,000",
+          flush=True)
     clock.done("7")
     out["travel"] = travel_step_us(rollout3d, arrs16, eposes, (25, 26),
                                    (9, 10))
@@ -948,6 +980,479 @@ def phase_jacobi_design(dev) -> dict:
     return out
 
 
+def k2_jacobi_flops(p: int, steps: int, cfull, ccheap, citer) -> float:
+    """Operations the 3D Jacobi rollouts of this run need, counted by hand
+    from ``_jacobi_solve`` of dgdm_tpu_torch/sim/rollout3d_ref.py, per lane:
+    a full step (every normal Jacobi step) first spans the points' wy (5 a
+    point), then pass A's plane arm and finger narrow phase (~215 a point:
+    two bivariate Horner evaluations, normals, contact mass, velocity) and
+    the elastic impulse with its ten sums (~45), the clamp's min (~40) and
+    the grip sum (~10), ~150 of lane-level updates; each Jacobi sweep
+    (``citer`` counts them) a finger pass (~90 a point) and a plane pass
+    (~60), their sums and the velocity updates (~60); a travel step the
+    servo update (15); every step the gates (25). The kernel recomputes a
+    point's masses and targets in every pass; that repetition is not
+    counted: the bound is the least work of the function."""
+    cf, cc, ci = (np.asarray(x, np.float64) for x in (cfull, ccheap, citer))
+    travel = steps - cf - cc
+    return float(np.sum(cf * (p * (5 + 215 + 45 + 40 + 10) + 150)
+                        + ci * (p * (90 + 60) + 60)
+                        + travel * 15 + steps * 25))
+
+
+def k2_plain_bitwise(what, kernel, plain, names) -> None:
+    """All 12 K2 output planes bitwise equal to the plain version."""
+    import torch
+
+    bad = [n for n, a, b in zip(names, kernel, plain) if not torch.equal(a, b)]
+    check(not bad, f"{what}: planes {bad} differ from the plain version")
+    print(f"  {what}: all 12 planes bitwise equal to the plain version",
+          flush=True)
+
+
+def jacobi_parity(out, ref, what: str, valid_min: float = 0.95) -> dict:
+    """The Jacobi bars of tests/test_torch_rollout3d_jacobi.py (set from
+    scripts/probe_rollout3d_chaos.py --solver jacobi): the reference moved;
+    >= 75% of lanes within 1e-3 for dtheta, >= 95% for dpx and dpy, median
+    |ddtheta| <= 1e-4, validity equal on ``valid_min`` of the lanes,
+    counters equal per block."""
+    check(float(np.abs(ref["dth"]).max()) > 1e-2, f"{what}: reference did "
+          "not move")
+    stats = {}
+    for k, need in (("dth", 0.75), ("dpx", 0.95), ("dpy", 0.95)):
+        err = np.abs(np.asarray(out[k]) - np.asarray(ref[k]))
+        stats[k] = {"frac_1e-3": float(np.mean(err < 1e-3)),
+                    "median": float(np.median(err)),
+                    "max_abs_err": float(err.max())}
+        check(np.isfinite(out[k]).all() and stats[k]["frac_1e-3"] >= need,
+              f"{what}: {k} {stats[k]}")
+    check(stats["dth"]["median"] <= 1e-4, f"{what}: median {stats['dth']}")
+    valid = float(np.mean(out["valid"] == ref["valid"]))
+    check(valid >= valid_min, f"{what}: validity equal on {valid:.4f}")
+    for k in ("cfull", "ccheap", "citer"):
+        check(np.array_equal(out[k][:, ::128], ref[k][:, ::128]),
+              f"{what}: {k} counters differ")
+    print(f"  {what}: " + ", ".join(
+        f"{k} {v['frac_1e-3']:.4f} within 1e-3 (median {v['median']:.3g}, "
+        f"max {v['max_abs_err']:.3g})" for k, v in stats.items())
+        + f", validity equal {valid:.4f}", flush=True)
+    return stats
+
+
+def engine_vs_kernel(e, k, what: str, solver: str) -> dict:
+    """The pure engine against K2 on the same pairs and poses, after the
+    guard (max |dtheta| > 1e-2). Newton: the bars of
+    tests/test_pallas3d.py:54-61 (median |ddpos| < 1e-3, max |ddpos| <
+    2e-2, corr > 0.98, validity equal), but |ddtheta| < 2e-2 on >= 99.5% of
+    the lanes, not all: over 800 steps on the datagen grid the squeeze is in
+    its grip, where 3 of 3,600 lanes go past 2e-2 (max 2.6e-2; ROADMAP
+    Queue 3). Jacobi: the two are different functions (the kernel merges a
+    point's finger contacts and sweeps the finger set, then the plane set),
+    and the JAX package's own engine and Pallas kernel come only so close
+    (82.8% of lanes within 2e-2, corr 0.869, median |ddpos| 2.2e-4, max
+    6.6e-3, validity equal on 81.3%: ``scripts/probe_rollout3d_chaos.py
+    --solver jacobi --engine_vs_kernel``): >= 75% within 2e-2, corr > 0.85,
+    median |ddpos| < 1e-3, max < 2e-2, validity equal on >= 80%."""
+    (ed, ep, ev), (kd, kp, kv) = e, k
+    check(np.isfinite(ed).all() and np.isfinite(ep).all(),
+          f"{what}: finite")
+    check(float(np.abs(kd).max()) > 1e-2, f"{what}: K2 did not move")
+    err, perr = np.abs(ed - kd), np.abs(ep - kp)
+    st = {"frac_dth_2e-2": float(np.mean(err < 2e-2)),
+          "max_dth_err": float(err.max()),
+          "median_dpos_err": float(np.median(perr)),
+          "max_dpos_err": float(perr.max()),
+          "corr": float(np.corrcoef(ed.ravel(), kd.ravel())[0, 1]),
+          "valid_equal": float(np.mean(ev == kv))}
+    print(f"  {what}: {st}", flush=True)
+    frac, corr, valid = ((0.995, 0.98, 1.0) if solver == "newton"
+                         else (0.75, 0.85, 0.8))
+    check(st["frac_dth_2e-2"] >= frac and st["median_dpos_err"] < 1e-3
+          and st["max_dpos_err"] < 2e-2 and st["corr"] > corr
+          and st["valid_equal"] >= valid, f"{what}: {st}")
+    return st
+
+
+def pure_step_cost(dev, scenes, grid) -> dict:
+    """The pure 3D engine's cost on the card at 8 pairs x 450 poses under
+    each solver: ms a step (CUDA events over 5 steps after 2), and from a
+    torch.profiler window of 10 steps the CUDA kernels a step and the card's
+    busy share (their summed device time over the window's wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dgdm_tpu_torch.sim import engine3d
+    from dgdm_tpu_torch.sim.types import to_device
+
+    sc = engine3d.expand_scene3(to_device(engine3d.with_hgrid(scenes), dev),
+                                1)
+    pose = torch.as_tensor(grid[:450], device=dev)
+    ctrl = torch.tensor([0.5, -0.5], device=dev)
+    cost = {}
+    old = engine3d.SOLVER3
+    try:
+        for solver in engine3d.SOLVERS3:
+            engine3d.SOLVER3 = solver
+            state = engine3d.init_state(sc, pose)
+            for _ in range(2):
+                state = engine3d.step(sc, state, ctrl)
+            ms, state = timed_cuda(lambda: engine3d.step(sc, state, ctrl),
+                                   reps=5, warm=False)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    state = engine3d.step(sc, state, ctrl)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            busy_us, launches = 0.0, 0
+            for e in prof.key_averages():
+                if not str(e.device_type).endswith("CUDA"):
+                    continue
+                dev_us = getattr(e, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = getattr(e, "self_cuda_time_total", 0.0)
+                busy_us += dev_us
+                launches += e.count
+            cost[solver] = {
+                "ms_per_step": ms, "kernels_per_step": launches / 10,
+                "busy_share": busy_us / (1e6 * wall) if busy_us else None,
+                "profiled_ms_per_step": 1e3 * wall / 10}
+            print(f"  pure engine ({solver}) at 8 x 450 rollouts: "
+                  f"{cost[solver]}", flush=True)
+    finally:
+        engine3d.SOLVER3 = old
+    return cost
+
+
+def phase_3d_solvers(dev) -> dict:
+    """Phase 11: K2's Jacobi instantiation at the datagen and verification
+    shapes (engine3d.SOLVER3 = "jacobi", restored after), its adaptive-Newton
+    instantiation at the datagen shape, and the pure 3D engine on the card.
+    The launch counts are reset just before each main-path call and read
+    just after. Returns the numbers for the summary."""
+    import torch
+
+    from dgdm_tpu_torch.core.config import SIM
+    from dgdm_tpu_torch.eval.simeval3d import (eval_rollout_batch_3d,
+                                               sim_eval_batch_3d)
+    from dgdm_tpu_torch.geom import mesh3d
+    from dgdm_tpu_torch.geom.fingers import normalize_y, sample_gripper_3d
+    from dgdm_tpu_torch.sim import (datagen, datagen3d, engine2d, engine3d,
+                                    rollout3d)
+    from dgdm_tpu_torch.sim.rollout3d_ref import OUT_NAMES, profile_batch_ref
+    from dgdm_tpu_torch.sim.types import to_device
+
+    def reset():
+        for k in rollout3d.KERNEL_LAUNCHES:
+            rollout3d.KERNEL_LAUNCHES[k] = 0
+
+    g32 = rollout3d.THREADS_PER_ROLLOUT
+    out: dict = {}
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    verts, faces = mesh3d.load_obj(MUG)
+    props = engine3d.object_properties_3d(verts, faces)
+    scenes8 = datagen.stack_scenes([
+        engine3d.make_scene(*sample_gripper_3d(i), verts, faces,
+                            obj_props=props) for i in range(8)])
+    grid = engine2d.pose_grid()
+    poses = torch.as_tensor(datagen.pad_poses(grid), device=dev)
+    old = engine3d.SOLVER3
+    try:
+        engine3d.SOLVER3 = "jacobi"
+        # ---- (a) K2 Jacobi at the datagen shape, through profile_pairs_3d
+        reset()
+        t0 = time.perf_counter()
+        dth, dpos, valid = datagen3d.profile_pairs_3d(scenes8, grid,
+                                                      device=dev)
+        a_call_s = time.perf_counter() - t0
+        a_launches = dict(rollout3d.KERNEL_LAUNCHES)
+        check(a_launches["rollout3d_jacobi"] == 1
+              and a_launches["rollout3d"] == 0,
+              f"(a) launched the Jacobi instantiation once: {a_launches}")
+        arrs8 = rollout3d.scene_arrays_3d(scenes8, device=dev)
+        check(float(arrs8[2][0, 0, 14]) == engine3d.default_calib3()
+              .k_contact and float(arrs8[2][0, 0, 12]) == 1.0,
+              "the Jacobi calibration in the scalar slots")
+        dg_ms, raw = timed_cuda(lambda: rollout3d.rollout(*arrs8, poses),
+                                reps=1)
+        plan = chosen(rollout3d)
+        rv = k2_view(raw, poses)
+        check(np.array_equal(rv["dth"][:, :9000], dth)
+              and np.array_equal(rv["valid"][:, :9000], valid),
+              "(a) profile_pairs_3d returns this kernel's outputs")
+        check((rv["ccheap"] == 0).all(), "Jacobi: no cheap steps")
+        # the whole 800 steps: the grip begins after ~300
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a_ref = profile_batch_ref(*arrs8, poses, sum_group=g32)
+        torch.cuda.synchronize()
+        a_plain_s = time.perf_counter() - t0
+        k2_plain_bitwise("K2 Jacobi datagen 8x9088x800", raw, a_ref,
+                         OUT_NAMES)
+        a_bound, a_bound_by = bound_ms(
+            k2_jacobi_flops(256, SIM.steps_3d, raw[9].cpu(), raw[10].cpu(),
+                            raw[11].cpu()), k2_bytes(8, 256, 9088))
+        print(f"  K2 Jacobi datagen 8x9088x800: {plan}; profile_pairs_3d "
+              f"{a_call_s:.2f}s on the host clock, kernel {dg_ms:.1f} ms, "
+              f"plain {1e3 * a_plain_s:.0f} ms, bound {a_bound:.2f} ms "
+              f"({a_bound_by}); full steps per block "
+              f"{rv['cfull'][:, ::128].mean():.0f} of 800, valid "
+              f"{rv['valid'].mean():.4f}", flush=True)
+        gold = np.load(os.path.join(ROOT, "tests", "fixtures",
+                                    "rollout3d_jacobi_golden.npz"))
+        check(str(gold["solver"]) == "jacobi", "Jacobi golden fixture")
+        garrs = [torch.as_tensor(gold[k], device=dev)
+                 for k in ("coefs", "points", "scalars")]
+        gposes = torch.as_tensor(gold["poses"], device=dev)
+        a_gold = {}
+        for sched in ("datagen", "eval"):
+            steps, rg, snap = (int(v) for v in gold[f"{sched}_schedule"])
+            g_out = rollout3d.rollout(*garrs, gposes, steps=steps,
+                                      regrasp_every=rg, snapshot_step=snap)
+            g_ref = [torch.as_tensor(gold[f"{sched}_{k}"], device=dev)
+                     for k in OUT_NAMES]
+            a_gold[sched] = jacobi_parity(
+                k2_view(g_out, gposes), k2_view(g_ref, gposes),
+                f"K2 Jacobi golden {sched} ({steps} steps), kernel vs TPU "
+                f"kernel", valid_min=JACOBI_VALID_MIN[sched])
+        out["datagen"] = {"kernel_ms": dg_ms, "call_s": a_call_s,
+                          "plain_ms": 1e3 * a_plain_s,
+                          "bound_ms": a_bound, "bound_by": a_bound_by,
+                          "full_steps_per_block": float(
+                              rv["cfull"][:, ::128].mean()),
+                          "golden": a_gold, "launches": a_launches}
+
+        # ---- (b) the verification shape through sim_eval_batch_3d ------
+        ys = np.stack([np.concatenate(sample_gripper_3d(100 + i))
+                       for i in range(16)])
+        pts = normalize_y(ys, fingers_3d=True)
+        nrot = 45
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = sim_eval_batch_3d(pts, [(verts, faces)], num_rot=nrot,
+                                    device=dev)
+        torch.cuda.synchronize()
+        b_call_s = time.perf_counter() - t0
+        b_launches = dict(rollout3d.KERNEL_LAUNCHES)
+        check(b_launches["rollout3d_jacobi"] == 1
+              and b_launches["rollout3d"] == 0,
+              f"(b) verification launched the Jacobi branch once: "
+              f"{b_launches}")
+        check(len(metrics) == 16 and all(
+            np.isfinite(m["delta_theta"]).all() for m in metrics),
+            "sim_eval_batch_3d: 16 finite metric dicts")
+        from dgdm_tpu_torch.geom.fingers import denormalize_y
+        y = denormalize_y(pts, fingers_3d=True)
+        scenes16 = datagen.stack_scenes([
+            engine3d.make_scene(yi[:21], yi[21:], verts, faces,
+                                obj_props=props) for yi in y])
+        arrs16 = rollout3d.scene_arrays_3d(scenes16, device=dev)
+        thetas = (np.linspace(-1.0, 1.0, nrot) * np.pi + np.pi).astype(
+            np.float32)
+        th_p = datagen.pad_poses(thetas[:, None])[:, 0]
+        eposes = torch.as_tensor(
+            np.stack([np.zeros_like(th_p), np.zeros_like(th_p), th_p], -1),
+            device=dev)
+        ekw = dict(regrasp_every=SIM.eval_regrasp_3d,
+                   snapshot_step=SIM.eval_regrasp_3d)
+        ev_ms, ev = timed_cuda(lambda: rollout3d.rollout(
+            *arrs16, eposes, steps=SIM.eval_steps_3d, **ekw), reps=1,
+            warm=False)
+        sq = rollout3d.rollout(*arrs16, eposes, steps=SIM.eval_regrasp_3d)
+        for a in range(5, 9):
+            check(torch.equal(ev[a], sq[a]),
+                  f"Jacobi verify: snapshot {OUT_NAMES[a]} differs from the "
+                  f"800-step squeeze's")
+        evv = k2_view(ev, eposes)
+        check(all(np.array_equal(metrics[i]["delta_theta"],
+                                 evv["dth"][i, :nrot] * 180 / np.pi)
+                  for i in range(16)),
+              "sim_eval_batch_3d's profiles are this kernel's snapshot")
+        # the plain version takes ~75 ms a step at this shape (its time is
+        # the host's, 2,048 rollouts); 1,000 steps cover the squeeze, the
+        # snapshot and regrasp at 800 and 200 steps of the second squeeze
+        cut_b = 1000
+        ckw = dict(ekw, steps=cut_b)
+        cb_ms, cb_out = timed_cuda(lambda: rollout3d.rollout(
+            *arrs16, eposes, **ckw), reps=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cb_ref = profile_batch_ref(*arrs16, eposes, **ckw, sum_group=g32)
+        torch.cuda.synchronize()
+        b_plain_s = time.perf_counter() - t0
+        k2_plain_bitwise(f"K2 Jacobi verify 16x128x{cut_b} (depth cut from "
+                         f"32,000; regrasp and snapshot at 800)", cb_out,
+                         cb_ref, OUT_NAMES)
+        b_bound, b_bound_by = bound_ms(
+            k2_jacobi_flops(256, SIM.eval_steps_3d, ev[9].cpu(),
+                            ev[10].cpu(), ev[11].cpu()),
+            k2_bytes(16, 256, 128))
+        print(f"  K2 Jacobi verify 16x128x32000: {chosen(rollout3d)}; "
+              f"sim_eval_batch_3d {b_call_s:.2f}s on the host clock, kernel "
+              f"{ev_ms:.0f} ms, bound {b_bound:.2f} ms ({b_bound_by}); "
+              f"snapshot bitwise equal to the 800-step squeeze; at {cut_b} "
+              f"steps kernel {cb_ms:.0f} ms, plain {b_plain_s:.1f}s",
+              flush=True)
+        out["verify"] = {"kernel_ms": ev_ms, "call_s": b_call_s,
+                         "bound_ms": b_bound, "bound_by": b_bound_by,
+                         "cut_steps": cut_b, "cut_kernel_ms": cb_ms,
+                         "cut_plain_s": b_plain_s, "launches": b_launches}
+
+        # ---- (c) the adaptive Newton loop at the datagen shape ----------
+        engine3d.SOLVER3 = "newton"
+        tol = dict(newton_iters=6, newton_tol=1e-4)
+        arrs8n = rollout3d.scene_arrays_3d(scenes8, device=dev)
+        reset()
+        t0 = time.perf_counter()
+        res = rollout3d.profile_batch(*arrs8n, poses, return_step_mix=True,
+                                      **tol)
+        torch.cuda.synchronize()
+        c_call_s = time.perf_counter() - t0
+        c_launches = dict(rollout3d.KERNEL_LAUNCHES)
+        check(c_launches["rollout3d_newton_tol"] == 1
+              and c_launches["rollout3d"] == 0,
+              f"(c) launched the adaptive instantiation once: {c_launches}")
+        tol_ms, traw = timed_cuda(lambda: rollout3d.rollout(
+            *arrs8n, poses, **tol), reps=1)
+        check(all(torch.equal(a, b) for a, b in zip(res[-1], traw[9:])),
+              "(c) profile_batch returns this kernel's counters")
+        fix_ms, fraw = timed_cuda(lambda: rollout3d.rollout(*arrs8n, poses),
+                                  reps=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_ref = profile_batch_ref(*arrs8n, poses, sum_group=g32, **tol)
+        torch.cuda.synchronize()
+        c_plain_s = time.perf_counter() - t0
+        k2_plain_bitwise("K2 newton_tol datagen 8x9088x800 (newton_iters 6, "
+                         "newton_tol 1e-4)", traw, t_ref, OUT_NAMES)
+        cf = traw[9][:, ::128].cpu().numpy()
+        ci = traw[11][:, ::128].cpu().numpy()
+        per = ci[cf > 0] / cf[cf > 0]
+        c_bound, c_bound_by = bound_ms(
+            k2_flops(256, SIM.steps_3d, traw[9].cpu(), traw[10].cpu(),
+                     traw[11].cpu()), k2_bytes(8, 256, 9088))
+        print(f"  K2 newton_tol datagen 8x9088x800: {chosen(rollout3d)}; "
+              f"kernel {tol_ms:.1f} ms (the fixed count of "
+              f"{rollout3d.NEWTON_KERNEL_ITERS3}: {fix_ms:.1f} ms), bound "
+              f"{c_bound:.2f} ms ({c_bound_by}), plain {c_plain_s:.1f}s; "
+              f"Newton iterations a full step per block: mean "
+              f"{per.mean():.2f}, max {per.max():.2f} (fixed count: "
+              f"{float(fraw[11][:, ::128].sum() / fraw[9][:, ::128].sum()):.2f})"
+              f"; full steps per block {cf.mean():.1f} (fixed "
+              f"{float(fraw[9][:, ::128].float().mean()):.1f})", flush=True)
+        check(len(np.unique(ci)) > 1, "iteration counts differ between "
+              "blocks")
+        tgold = np.load(os.path.join(ROOT, "tests", "fixtures",
+                                     "rollout3d_newton_tol_golden.npz"))
+        tgarrs = [torch.as_tensor(tgold[k], device=dev)
+                  for k in ("coefs", "points", "scalars")]
+        tgp = torch.as_tensor(tgold["poses"], device=dev)
+        c_gold = {}
+        for sched in ("datagen", "eval"):
+            steps, rg, snap = (int(v) for v in tgold[f"{sched}_schedule"])
+            g_out = rollout3d.rollout(*tgarrs, tgp, steps=steps,
+                                      regrasp_every=rg, snapshot_step=snap,
+                                      **tol)
+            g_ref = [torch.as_tensor(tgold[f"{sched}_{k}"], device=dev)
+                     for k in OUT_NAMES]
+            c_gold[sched] = parity(
+                k2_view(g_out, tgp), k2_view(g_ref, tgp),
+                f"K2 newton_tol golden {sched} ({steps} steps), kernel vs "
+                f"TPU kernel")
+        out["newton_tol"] = {
+            "kernel_ms": tol_ms, "fixed_kernel_ms": fix_ms,
+            "call_s": c_call_s, "plain_ms": 1e3 * c_plain_s,
+            "bound_ms": c_bound, "bound_by": c_bound_by,
+            "iters_per_full_step_mean": float(per.mean()),
+            "iters_per_full_step_max": float(per.max()),
+            "golden": c_gold, "launches": c_launches}
+
+        # ---- (d) the pure engine on the card -----------------------------
+        chunk = grid[:450]
+        pure = {}
+        for solver in ("newton", "jacobi"):
+            engine3d.SOLVER3 = solver
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e = datagen3d.profile_pairs_3d(scenes8, chunk, device=dev,
+                                           use_pallas=False)
+            torch.cuda.synchronize()
+            e_s = time.perf_counter() - t0
+            k = datagen3d.profile_pairs_3d(scenes8, chunk, device=dev)
+            pure[solver] = {"seconds": e_s, "ms_per_step": 1e3 * e_s / 800,
+                            **engine_vs_kernel(
+                                e, k, f"pure engine vs K2 ({solver}), "
+                                f"8x450x800 ({e_s:.1f}s)", solver)}
+        engine3d.SOLVER3 = "newton"
+        th45 = torch.as_tensor(thetas, device=dev)
+        sc16 = to_device(scenes16, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cut_d = 1600
+        ed, ep, ef, efp = eval_rollout_batch_3d(
+            sc16, th45, first_squeeze=800, total_steps=cut_d,
+            regrasp_every=800)
+        torch.cuda.synchronize()
+        ev_s = time.perf_counter() - t0
+        check(all(torch.isfinite(a).all() for a in (ed, ep, ef, efp)),
+              "eval_rollout_batch_3d: finite")
+        kb = rollout3d.profile_batch(*rollout3d.scene_arrays_3d(
+            scenes16, device=dev), eposes, steps=cut_d, **ekw)
+        eval_st = engine_vs_kernel(
+            (ed.cpu().numpy(), ep.cpu().numpy(), np.ones_like(
+                ed.cpu().numpy(), bool)),
+            (kb[0][:, :nrot].cpu().numpy(), kb[1][:, :nrot].cpu().numpy(),
+             np.ones((16, nrot), bool)),
+            f"eval_rollout_batch_3d 16x45x{cut_d} (depth cut from 32,000) "
+            f"vs K2's snapshot ({ev_s:.1f}s)", "newton")
+        tr = engine3d.rollout_trace3d(engine3d.with_hgrid(to_device(
+            type(scenes16)(**{f: (None if v is None else v[0])
+                              for f, v in vars(scenes16).items()}), dev)),
+            torch.tensor([0.0, 0.0, float(thetas[0])], device=dev),
+            steps=800, every=20)
+        check(tuple(tr.shape) == (40, 9) and torch.isfinite(tr).all(),
+              f"rollout_trace3d: finite (40, 9), got {tuple(tr.shape)}")
+        cost = pure_step_cost(dev, scenes8, grid)
+        # one step card vs CPU for each solver, from a mid-squeeze state
+        sc2 = engine3d.expand_scene3(engine3d.with_hgrid(
+            datagen.stack_scenes([engine3d.make_scene(
+                *sample_gripper_3d(i), verts, faces, obj_props=props)
+                for i in (2, 3)])), 1)
+        p16 = torch.as_tensor(np.stack([np.zeros(16), np.zeros(16),
+                                        np.linspace(0, 6.0, 16)], -1),
+                              dtype=torch.float32)
+        scd = to_device(sc2, dev)
+        st = engine3d.init_state(scd, p16.to(dev))
+        ctrl = torch.tensor([0.5, -0.5], device=dev)
+        for _ in range(760):
+            st = engine3d.step(scd, st, ctrl)
+        st_cpu = to_device(st, "cpu")
+        card_cpu = {}
+        for solver in engine3d.SOLVERS3:
+            engine3d.SOLVER3 = solver
+            a = engine3d.step(scd, st, ctrl)
+            b = engine3d.step(sc2, st_cpu, ctrl.cpu())
+            err = max(float((getattr(a, f).cpu() - getattr(b, f)).abs().max()
+                            / max(float(getattr(b, f).abs().max()), 1e-12))
+                      for f in ("pos", "quat", "vel", "om", "q", "qd"))
+            card_cpu[solver] = err
+            check(err < 1e-5, f"one {solver} step card vs CPU: {err:.3g}")
+        print(f"  one step card vs CPU (largest difference relative to each "
+              f"state leaf's largest entry): {card_cpu}; rollout_trace3d "
+              f"{tuple(tr.shape)}", flush=True)
+        out["pure"] = {"profile": pure, "eval": dict(eval_st, seconds=ev_s),
+                       "cost": cost, "card_vs_cpu": card_cpu}
+    finally:
+        engine3d.SOLVER3 = old
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def pipeline_line(what: str, out: dict) -> str:
     """The datagen CLI's summed pipeline figures, printable."""
     parts = out["kernel_s"] + out["bake_s"] + out["write_s"]
@@ -1163,11 +1668,14 @@ def main() -> int:
     from dgdm_tpu_torch.eval.metrics import profile_metrics_2d
     from dgdm_tpu_torch.geom.contour import extract_contours, synthetic_icon
     from dgdm_tpu_torch.geom.fingers import sample_gripper_2d
-    from dgdm_tpu_torch.sim import datagen, engine2d, rollout2d, rollout3d
+    from dgdm_tpu_torch.sim import (datagen, engine2d, engine3d, rollout2d,
+                                    rollout3d)
     from dgdm_tpu_torch.sim.rollout2d_ref import profile_batch_ref
 
-    # phases 2-9 run the default configuration (phase 10 sets "jacobi")
+    # phases 2-9 run the default configuration (phases 10 and 11 set
+    # "jacobi" and restore it)
     engine2d.SOLVER = "newton"
+    engine3d.SOLVER3 = "newton"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # the training CLIs' metric sink mirrors to wandb where it is installed;
@@ -1204,9 +1712,17 @@ def main() -> int:
             for k in (0, 1)}
     check(all(len(v) == 1 for v in inst.values()),
           f"rollout2d: instantiations Solver = 0, 1 in the build log: {regs2}")
+    # K2's three: rollout3d_kernel<32, Solver>, Solver = 0 (Newton), 1
+    # (Jacobi), 2 (Newton with newton_tol)
+    regs3 = ptxas_report("rollout3d", rollout3d.LIBRARY, n_kernels=3)
+    inst3 = {k: [r for e, r in regs3.items() if f"ILi32ELi{k}EE" in e]
+             for k in (0, 1, 2)}
+    check(all(len(v) == 1 for v in inst3.values()),
+          f"rollout3d: instantiations Solver = 0, 1, 2 in the build log: "
+          f"{regs3}")
     registers = {"rollout2d": inst[0][0], "rollout2d_jacobi": inst[1][0],
-                 "rollout3d": next(iter(ptxas_report(
-                     "rollout3d", rollout3d.LIBRARY).values()))}
+                 "rollout3d": inst3[0][0], "rollout3d_jacobi": inst3[1][0],
+                 "rollout3d_newton_tol": inst3[2][0]}
     for lib in libraries.values():
         lib.get()
 
@@ -1434,7 +1950,11 @@ def main() -> int:
     jac = phase_jacobi_design(dev)
     clock.done("10")
 
-    # ---- 11. summary ------------------------------------------------------
+    # ---- 11. the 3D Jacobi configuration, newton_tol, the pure 3D engine --
+    s3 = phase_3d_solvers(dev)
+    clock.done("11")
+
+    # ---- 12. summary ------------------------------------------------------
     summary = {
         "card": card, "build_s": build_s, "registers": registers,
         "travel_k1": k1_travel,
@@ -1454,7 +1974,7 @@ def main() -> int:
         "design_loop_s": design_s, "launches": launches,
         "design_call": {"seconds": call_s, "kernel_ms": call_k_ms,
                         "full_steps_per_block": call_full},
-        "k2": k2, "train_path": train, "jacobi": jac,
+        "k2": k2, "train_path": train, "jacobi": jac, "solvers_3d": s3,
         "phase_s": clock.seconds,
         "seconds": time.perf_counter() - t_start,
     }
@@ -1523,6 +2043,43 @@ def main() -> int:
         "verify_bound_ms": jac["verify"]["bound_ms"],
         "verify_shape": "16 pairs x 384 poses x 8000 steps",
         "verify_plain_bitwise_steps": jac["verify"]["cut_steps"],
+    }, {
+        "name": "rollout3d_jacobi", "route": "cuda",
+        "source": "dgdm_tpu_torch/csrc/rollout3d.cu",
+        "replaces": "dgdm_tpu/sim/pallas3d.py:302",
+        "launches": (s3["datagen"]["launches"]["rollout3d_jacobi"]
+                     + s3["verify"]["launches"]["rollout3d_jacobi"]),
+        "max_abs_err": max(v["max_abs_err"] for st in
+                           s3["datagen"]["golden"].values()
+                           for v in st.values()),
+        "ms": s3["datagen"]["kernel_ms"],
+        "plain_ms": s3["datagen"]["plain_ms"],
+        "bound_ms": s3["datagen"]["bound_ms"],
+        "bound_by": s3["datagen"]["bound_by"], "library_ms": None,
+        "shape": "8 pairs x 9088 poses x 800 steps (datagen)",
+        "registers": registers["rollout3d_jacobi"],
+        "verify_ms": s3["verify"]["kernel_ms"],
+        "verify_bound_ms": s3["verify"]["bound_ms"],
+        "verify_plain_bitwise_steps": s3["verify"]["cut_steps"],
+    }, {
+        "name": "rollout3d_newton_tol", "route": "cuda",
+        "source": "dgdm_tpu_torch/csrc/rollout3d.cu",
+        "replaces": "dgdm_tpu/sim/pallas3d.py:714",
+        "launches": s3["newton_tol"]["launches"]["rollout3d_newton_tol"],
+        "max_abs_err": max(v["max_abs_err"] for st in
+                           s3["newton_tol"]["golden"].values()
+                           for v in st.values()),
+        "ms": s3["newton_tol"]["kernel_ms"],
+        "plain_ms": s3["newton_tol"]["plain_ms"],
+        "bound_ms": s3["newton_tol"]["bound_ms"],
+        "bound_by": s3["newton_tol"]["bound_by"], "library_ms": None,
+        "shape": "8 pairs x 9088 poses x 800 steps (datagen), newton_iters "
+                 "6, newton_tol 1e-4",
+        "registers": registers["rollout3d_newton_tol"],
+        "fixed_count_ms": s3["newton_tol"]["fixed_kernel_ms"],
+        "iters_per_full_step_mean": s3["newton_tol"][
+            "iters_per_full_step_mean"],
+        "iters_per_full_step_max": s3["newton_tol"]["iters_per_full_step_max"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

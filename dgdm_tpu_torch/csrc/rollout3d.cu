@@ -1,7 +1,11 @@
 // 3D squeeze rollouts (kernel K2) for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_rollout3d_kernel` of dgdm_tpu/sim/pallas3d.py on
-// its Newton path (the package's default solver). The Pallas grid cell, one
+// Replaces the TPU kernel `_rollout3d_kernel` of dgdm_tpu/sim/pallas3d.py,
+// both of its contact solvers, as three instantiations of one kernel body
+// (template parameter Solver): the coupled Newton solve with its fixed
+// iteration count (branches a-c), the same solve with the adaptive
+// `newton_tol` loop (branch e, pallas3d.py:714-731) and projected Jacobi
+// (branch d, pallas3d.py:302-433; see "Jacobi" below). The Pallas grid cell, one
 // (pair, 128-pose group), is one thread block cluster here: G threads of a
 // warp carry one rollout and share its surface points (lane r takes
 // p = r, r + G, ...), so a group is 128 * G threads in
@@ -48,6 +52,35 @@
 // memory too, and the lane's index within its rollout is read from %laneid
 // where it is used. Nothing of a step touches device memory.
 //
+// Adaptive Newton (Solver = kNewtonTol). The Newton body repeats while fewer
+// than newton_iters iterations have run and the step size, the largest |du|
+// of the whole 128-pose group times the group's largest accepted line-search
+// step, is above newton_tol: two group reductions an iteration (a vote on
+// the accepted steps, and a max of |du| as unsigned bit patterns across the
+// warps, the block and the cluster). The iterations taken are counted in
+// the rollout's Lane. With newton_tol = 0 the launcher runs kNewton, whose
+// code is the fixed-count loop alone.
+//
+// Jacobi (Solver = kJacobi). Every normal step is a full solve (no cheap
+// path; the settled-travel gate, regrasp and snapshot are shared): pass A
+// computes each point's finger narrow phase and its unclamped elastic wedge
+// impulse (ten float64 sums: the two contact counts, the impulse's force,
+// torque and jaw components), pass B the global energy clamp s_el (a min over
+// the rollout's points: a lane min and a shuffle min, exact in any order),
+// pass C the grip load of the clamped impulse; then solver_iters = 8 sweeps,
+// each a pass over the finger contact set and one over the plane set, whose
+// float64 sums update the velocities between the two. A point keeps a normal
+// impulse and a 3-vector tangential impulse per set across the sweeps. The
+// slab holds, per point, those 8 accumulators and the finger normal and depth
+// (12 floats, 192 KB a block at P = 256, one block an SM as for Newton); the
+// rest of a point's quantities (lever arm, effective masses, targets, the
+// clamped impulse, the roughness cap) are recomputed in every pass from them
+// with the expressions of pass A, so they round identically. Two other plans
+// were reckoned: the Newton slab's 12 geometry floats plus the 8
+// accumulators (320 KB, does not fit), and 8 rollouts a block in clusters of
+// 16 (non-portable). The launcher refuses a point count whose slab does not
+// fit a block (P > 256 on the H100) and names it.
+//
 // Numerics: float32 state and elementwise physics, compiled without fast
 // math and with -fmad=false, so that each expression rounds like the plain
 // PyTorch version (dgdm_tpu_torch/sim/rollout3d_ref.py), which keeps the
@@ -73,16 +106,22 @@ constexpr int kNzSeg = 2;    // z cells
 constexpr int kTotSeg = kNSeg * kNzSeg;
 constexpr int kCoef = 12;    // (DEG_X + 1) x (DEG_Z + 1) per cell
 constexpr int kScal = 32;    // per-pair scalar slots (rollout3d.scene_arrays_3d)
+// contact solvers (rollout3d.SOLVER_CODES): one instantiation each
+constexpr int kNewton = 0;
+constexpr int kJacobi = 1;
+constexpr int kNewtonTol = 2;
+constexpr int kWarpSlots = 2 * 32;   // max_nonneg's per-warp words
 
 }  // namespace
 
 // Must match rollout3d._Params (ctypes) field for field.
 struct Rollout3DParams {
-  int steps, regrasp_every, snapshot_step, newton_iters;
-  float dt, d_imp, ctrl_l, ctrl_r, kp, damping, x0f, x1f, z0f, z1f, hseg,
-      hzseg, inv_hseg, inv_hzseg, surf_l0, surf_r0, plane_z, tgt_p_v,
-      tgt_p_d, g_dt, gravity, d_imp_dt, v_rest, depth_el_cap, eps_settled,
-      marg, tip_atol;
+  int steps, regrasp_every, snapshot_step, newton_iters, solver,
+      solver_iters;
+  float newton_tol, dt, d_imp, ctrl_l, ctrl_r, kp, damping, x0f, x1f, z0f,
+      z1f, hseg, hzseg, inv_hseg, inv_hzseg, surf_l0, surf_r0, plane_z,
+      tgt_p_v, tgt_p_d, g_dt, gravity, d_imp_dt, v_rest, depth_el_cap,
+      eps_settled, marg, tip_atol, tgt_fj_v, tgt_fj_d, rough_sat;
 };
 
 namespace {
@@ -117,6 +156,7 @@ struct Pair {
   float ib00, ib11, ib22, ib01, ib02, ib12; // body inertia
   float mu_plane, mu_finger, rough, unload, c_r, fmax_l, fmin_r, restitution;
   float inv_m, inv_fml, inv_fmr, tgt_f_v, tgt_f_d, mg_dt;
+  float k_cal, b_cal;                       // calibrated finger gains
 };
 constexpr int kPairFloats = sizeof(Pair) / sizeof(float);
 
@@ -144,6 +184,7 @@ struct Lane {
   // the rollout's state that a solve does not touch (orientation, snapshot,
   // wy span) waits here while the solve runs
   float keep[12];
+  float iters;   // full-solve Newton iterations taken (kNewtonTol)
   int pose;   // index of the rollout's pose
 };
 // odd stride in floats: conflict-free when every thread reads its own
@@ -232,18 +273,18 @@ __device__ __forceinline__ void surface_eval(const float* c, float t, float s,
   }
 }
 
-__device__ __forceinline__ void full_geo(const Shared& sh,
-                                         const Pair& pc,
-                                         const Rollout3DParams& prm,
-                                         const Lane& L, int p,
-                                         FGeo& g) {
-  PGeo pg;
-  float wx, wy, wz;
-  plane_geo(sh, pc, prm, L, p, pg, wy, wx, wz);
-  g.rx = pg.rx; g.ry = pg.ry; g.rz = pg.rz;
-  g.w_np = pg.w_np; g.tgt_pn = pg.tgt_pn;
-  const float rx = pg.rx, ry = pg.ry, rz = pg.rz;
+// The finger narrow phase of one point at world position (wx, wy, wz)
+// (pallas3d.py:243-278): two surface evaluations and the merged contact set
+// (a point can touch only the deeper jaw): its normal, depth and activity.
+struct Narrow {
+  float nfx, nfy, nfz, depth_f, act_f;
+  bool is_l;
+};
 
+__device__ __forceinline__ void finger_narrow(const Shared& sh,
+                                              const Rollout3DParams& prm,
+                                              const Lane& L, float wx,
+                                              float wy, float wz, Narrow& o) {
   bool in_dom = (wx >= prm.x0f) && (wx <= prm.x1f) && (wz >= prm.z0f) &&
                 (wz <= prm.z1f);
   float xc = clampf(wx, prm.x0f, prm.x1f);
@@ -265,35 +306,57 @@ __device__ __forceinline__ void full_geo(const Shared& sh,
   float inv_nr = rsq(1.0f + srx * srx + srz * srz);
   float depth_l = (surf_l - wy) * inv_nl;
   float depth_r = (wy - surf_r) * inv_nr;
-  bool is_l = depth_l > depth_r;
-  float depth_f = is_l ? depth_l : depth_r;
-  float nfx = is_l ? (-slx) * inv_nl : srx * inv_nr;
-  float nfy = is_l ? inv_nl : -inv_nr;
-  float nfz = is_l ? (-slz) * inv_nl : srz * inv_nr;
-  float act_f = step01(depth_f > 0.0f && in_dom);
-  float cfx = ry * nfz - rz * nfy;
-  float cfy = rz * nfx - rx * nfz;
-  float cfz = rx * nfy - ry * nfx;
+  o.is_l = depth_l > depth_r;
+  o.depth_f = o.is_l ? depth_l : depth_r;
+  o.nfx = o.is_l ? (-slx) * inv_nl : srx * inv_nr;
+  o.nfy = o.is_l ? inv_nl : -inv_nr;
+  o.nfz = o.is_l ? (-slz) * inv_nl : srz * inv_nr;
+  o.act_f = step01(o.depth_f > 0.0f && in_dom);
+}
+
+// The effective mass along a finger normal and the point's pre-update
+// normal velocity (pallas3d.py:279-285), from its lever arm r.
+__device__ __forceinline__ void finger_mass(const Pair& pc, const Lane& L,
+                                            float rx, float ry, float rz,
+                                            const Narrow& o, float& me_f,
+                                            float& vn_f0) {
+  float cfx = ry * o.nfz - rz * o.nfy;
+  float cfy = rz * o.nfx - rx * o.nfz;
+  float cfz = rx * o.nfy - ry * o.nfx;
   float wfx = L.w00 * cfx + L.w01 * cfy + L.w02 * cfz;
   float wfy = L.w01 * cfx + L.w11 * cfy + L.w12 * cfz;
   float wfz = L.w02 * cfx + L.w12 * cfy + L.w22 * cfz;
   float ang_f = cfx * wfx + cfy * wfy + cfz * wfz;
-  float inv_fm = is_l ? pc.inv_fml : pc.inv_fmr;
-  float me_f = 1.0f / (pc.inv_m + ang_f + nfy * nfy * inv_fm);
-  float qd_c0 = is_l ? L.qdl : L.qdr;
-  // pre-update point velocity
+  float inv_fm = o.is_l ? pc.inv_fml : pc.inv_fmr;
+  me_f = 1.0f / (pc.inv_m + ang_f + o.nfy * o.nfy * inv_fm);
+  float qd_c0 = o.is_l ? L.qdl : L.qdr;
   float vpx = L.vx + L.oy * rz - L.oz * ry;
   float vpy = L.vy + L.oz * rx - L.ox * rz;
   float vpz = L.vz + L.ox * ry - L.oy * rx;
-  float vn_f0 = vpx * nfx + (vpy - qd_c0) * nfy + vpz * nfz;
-  g.tgt_fn = pc.tgt_f_v * vn_f0 + pc.tgt_f_d * depth_f +
+  vn_f0 = vpx * o.nfx + (vpy - qd_c0) * o.nfy + vpz * o.nfz;
+}
+
+__device__ __forceinline__ void full_geo(const Shared& sh,
+                                         const Pair& pc,
+                                         const Rollout3DParams& prm,
+                                         const Lane& L, int p,
+                                         FGeo& g) {
+  PGeo pg;
+  float wx, wy, wz;
+  plane_geo(sh, pc, prm, L, p, pg, wy, wx, wz);
+  g.rx = pg.rx; g.ry = pg.ry; g.rz = pg.rz;
+  g.w_np = pg.w_np; g.tgt_pn = pg.tgt_pn;
+  Narrow o;
+  finger_narrow(sh, prm, L, wx, wy, wz, o);
+  float me_f, vn_f0;
+  finger_mass(pc, L, pg.rx, pg.ry, pg.rz, o, me_f, vn_f0);
+  g.tgt_fn = pc.tgt_f_v * vn_f0 + pc.tgt_f_d * o.depth_f +
              pc.restitution * mx(-vn_f0 - prm.v_rest, 0.0f);
-  g.w_nf = act_f * me_f / pc.c_r;
-  float depth_eln = act_f * clampf(depth_f, 0.0f, prm.depth_el_cap);
+  g.w_nf = o.act_f * me_f / pc.c_r;
+  float depth_eln = o.act_f * clampf(o.depth_f, 0.0f, prm.depth_el_cap);
   g.rough_capn = pc.rough * me_f * depth_eln;
-  g.nfx = nfx; g.nfy = nfy; g.nfz = nfz;
-  g.cfx = cfx; g.cfy = cfy; g.cfz = cfz;
-  g.sl = step01(is_l);
+  g.nfx = o.nfx; g.nfy = o.nfy; g.nfz = o.nfz;
+  g.sl = step01(o.is_l);
   g.sr = 1.0f - g.sl;
 }
 
@@ -396,11 +459,15 @@ __device__ __forceinline__ float e_quad(const Pair& pc, const Lane& L,
 // (pallas3d.py:497-737): u = (vx, vy, vz, ox, oy, oz, qdl, qdr), in/out.
 // Lane r of the rollout's G lanes takes the points r, r + G, ...
 // The lane's geometry is computed once, ahead of the passes, into `slab`
-// (the thread's column), and the passes read it back.
-template <int G>
-__device__ void full_solve(const Shared& sh, const Pair& pc,
-                           const Rollout3DParams& prm, Lane& L, int P,
-                           float* slab, const float* uu, float* u) {
+// (the thread's column), and the passes read it back. With Tol the loop
+// ends early once the group's step size falls to prm.newton_tol
+// (pallas3d.py:703-731). Returns the iterations run.
+template <int G, bool Tol>
+__device__ int full_solve(const Shared& sh, const Pair& pc,
+                          const Rollout3DParams& prm, Lane& L, int P,
+                          float* slab, const float* uu, float* u,
+                          rollout::GroupVote<rollout::Layout<G>::kCluster>& vote,
+                          unsigned* warp_slots) {
   constexpr int kThreads = rollout::Layout<G>::kThreads;
   for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
     FGeo g;
@@ -715,7 +782,19 @@ __device__ void full_solve(const Shared& sh, const Pair& pc,
 #pragma unroll
     for (int a = 0; a < 8; ++a)
       u[a] = take_new ? (best12 ? u1[a] : u2[a]) : u[a];
+    if constexpr (Tol) {
+      // the step size: the group's largest |du| times its largest accepted
+      // line-search step (0 where every lane kept u)
+      float mdv = 0.0f;
+#pragma unroll
+      for (int a = 0; a < 8; ++a) mdv = mx(mdv, fabsf(dv[a]));
+      const int acc = vote.any2(take_new && best12, take_new && !best12);
+      const float alpha = (acc & 1) ? 1.0f : ((acc & 2) ? 0.5f : 0.0f);
+      const float step = vote.max_nonneg(mdv, warp_slots) * alpha;
+      if (!(step > prm.newton_tol)) return it + 1;
+    }
   }
+  return prm.newton_iters;
 }
 
 // No finger contact reachable in the group: 3 Newton iterations on the
@@ -878,7 +957,290 @@ __device__ void cheap_solve(const Shared& sh, const Pair& pc,
   }
 }
 
+// ---- Jacobi (Solver = kJacobi) --------------------------------------------
+
+// The slab of the Jacobi instantiation, in each thread's own column: per
+// point the finger normal and depth of the narrow phase (kJGeo floats; the
+// jaw of the contact is the sign of n_y), then the finger set's normal and
+// tangential impulse and the plane set's (8 floats).
+constexpr int kJGeo = 4;
+constexpr int kJHeld = kJGeo + 8;
+
+// A finger point of the Jacobi solve: lever arm, world z and narrow phase.
+struct JPoint {
+  float rx, ry, rz, wz;
+  Narrow o;
+};
+
+// The point's lever arm and world position, as plane_geo computes them.
+__device__ __forceinline__ void jarm(const Shared& sh, const Lane& L, int p,
+                                     JPoint& j, float& wx, float& wy) {
+  float bx = sh.pbx[p], by = sh.pby[p], bz = sh.pbz[p];
+  j.rx = L.r00 * bx + L.r01 * by + L.r02 * bz;
+  j.ry = L.r10 * bx + L.r11 * by + L.r12 * bz;
+  j.rz = L.r20 * bx + L.r21 * by + L.r22 * bz;
+  wx = L.px + j.rx;
+  wy = L.py + j.ry;
+  j.wz = L.pz + j.rz;
+}
+
+// A point of a later pass: the narrow phase from the slab.
+template <int T>
+__device__ __forceinline__ void jpoint(const Shared& sh,
+                                       const Rollout3DParams& prm,
+                                       const Lane& L, int p, const float* col,
+                                       JPoint& j) {
+  float wx, wy;
+  jarm(sh, L, p, j, wx, wy);
+  j.o.nfx = col[0];
+  j.o.nfy = col[T];
+  j.o.nfz = col[2 * T];
+  j.o.depth_f = col[3 * T];
+  j.o.is_l = j.o.nfy > 0.0f;
+  bool in_dom = (wx >= prm.x0f) && (wx <= prm.x1f) && (j.wz >= prm.z0f) &&
+                (j.wz <= prm.z1f);
+  j.o.act_f = step01(j.o.depth_f > 0.0f && in_dom);
+}
+
+// The elastic wedge's unclamped velocity impulse of a finger point
+// (pallas3d.py:311-317), with its clipped depth and pushout cap.
+__device__ __forceinline__ float wedge_dv(const Pair& pc,
+                                          const Rollout3DParams& prm,
+                                          const Narrow& o, float vn_f0,
+                                          float& depth_el, float& v_cap) {
+  depth_el = o.act_f * clampf(o.depth_f, 0.0f, prm.depth_el_cap);
+  v_cap = prm.d_imp_dt * pc.k_cal * depth_el;
+  return o.act_f *
+         mn(mx(prm.d_imp_dt * (pc.k_cal * depth_el - pc.b_cal * vn_f0),
+               0.0f),
+            mx(v_cap - vn_f0, 0.0f));
+}
+
+// Projected Jacobi with the explicit elastic wedge (pallas3d.py:302-433):
+// u = (vx, vy, vz, ox, oy, oz, qdl, qdr) out, from the step's start
+// velocities (L). Lane r of the rollout's G lanes takes the points r,
+// r + G, ...
 template <int G>
+__device__ void jacobi_solve(const Shared& sh, const Pair& pc,
+                             const Rollout3DParams& prm, const Lane& L, int P,
+                             float* slab, float* u) {
+  constexpr int T = rollout::Layout<G>::kThreads;
+  const float dt = prm.dt;
+  // ---- pass A: narrow phase, the unclamped elastic impulse ----
+  double s_af = 0.0, s_ap = 0.0, s_x = 0.0, s_y = 0.0, s_z = 0.0,
+         s_tx = 0.0, s_ty = 0.0, s_tz = 0.0, s_l = 0.0, s_r = 0.0;
+  for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
+    float* col = slab + k * kJHeld * T;
+    JPoint j;
+    float wx, wy;
+    jarm(sh, L, p, j, wx, wy);
+    finger_narrow(sh, prm, L, wx, wy, j.wz, j.o);
+    col[0] = j.o.nfx;
+    col[T] = j.o.nfy;
+    col[2 * T] = j.o.nfz;
+    col[3 * T] = j.o.depth_f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) col[(kJGeo + q) * T] = 0.0f;
+    float me_f, vn_f0, depth_el, v_cap;
+    finger_mass(pc, L, j.rx, j.ry, j.rz, j.o, me_f, vn_f0);
+    const float imp0 = me_f * wedge_dv(pc, prm, j.o, vn_f0, depth_el, v_cap);
+    const float i0x = imp0 * j.o.nfx, i0y = imp0 * j.o.nfy,
+                i0z = imp0 * j.o.nfz;
+    const float sl = step01(j.o.is_l);
+    s_af = s_af + (double)j.o.act_f;
+    s_ap = s_ap + (double)step01(prm.plane_z - j.wz > 0.0f);
+    s_x = s_x + (double)i0x;
+    s_y = s_y + (double)i0y;
+    s_z = s_z + (double)i0z;
+    s_tx = s_tx + (double)(j.ry * i0z - j.rz * i0y);
+    s_ty = s_ty + (double)(j.rz * i0x - j.rx * i0z);
+    s_tz = s_tz + (double)(j.rx * i0y - j.ry * i0x);
+    s_l = s_l + (double)(sl * i0y);
+    s_r = s_r + (double)((1.0f - sl) * i0y);
+  }
+  const float cnt_f = mx(group_sum<G>(s_af), 1.0f);
+  const float cnt_p = mx(group_sum<G>(s_ap), 1.0f);
+  const float dvx_u = group_sum<G>(s_x) * pc.inv_m;
+  const float dvy_u = group_sum<G>(s_y) * pc.inv_m;
+  const float dvz_u = group_sum<G>(s_z) * pc.inv_m;
+  const float tqx = group_sum<G>(s_tx), tqy = group_sum<G>(s_ty),
+              tqz = group_sum<G>(s_tz);
+  const float dox_u = L.w00 * tqx + L.w01 * tqy + L.w02 * tqz;
+  const float doy_u = L.w01 * tqx + L.w11 * tqy + L.w12 * tqz;
+  const float doz_u = L.w02 * tqx + L.w12 * tqy + L.w22 * tqz;
+  const float dqdl_u = -group_sum<G>(s_l) * pc.inv_fml;
+  const float dqdr_u = -group_sum<G>(s_r) * pc.inv_fmr;
+
+  // ---- pass B: the global energy clamp, a min over the points ----
+  float lo = INFINITY;
+  for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
+    JPoint j;
+    jpoint<T>(sh, prm, L, p, slab + k * kJHeld * T, j);
+    float me_f, vn_f0, depth_el, v_cap;
+    finger_mass(pc, L, j.rx, j.ry, j.rz, j.o, me_f, vn_f0);
+    const float dv_el = wedge_dv(pc, prm, j.o, vn_f0, depth_el, v_cap);
+    const float dqd_pt = j.o.is_l ? dqdl_u : dqdr_u;
+    const float dvn_ind =
+        (dvx_u + doy_u * j.rz - doz_u * j.ry) * j.o.nfx +
+        (dvy_u + doz_u * j.rx - dox_u * j.rz - dqd_pt) * j.o.nfy +
+        (dvz_u + dox_u * j.ry - doy_u * j.rx) * j.o.nfz;
+    const float headroom = mx(v_cap - vn_f0, 0.0f);
+    const bool take = dv_el > 0.0f && dvn_ind > 1e-9f;
+    const float denom = take ? dvn_ind : 1.0f;
+    lo = mn(lo, take ? headroom / denom : INFINITY);
+  }
+  const float s_el = clampf(rollout::group_min<G>(lo), 0.0f, 1.0f);
+
+  // ---- pass C: the grip load of the clamped impulse ----
+  double s_g = 0.0;
+  for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
+    JPoint j;
+    jpoint<T>(sh, prm, L, p, slab + k * kJHeld * T, j);
+    float me_f, vn_f0, depth_el, v_cap;
+    finger_mass(pc, L, j.rx, j.ry, j.rz, j.o, me_f, vn_f0);
+    const float dv_el = wedge_dv(pc, prm, j.o, vn_f0, depth_el, v_cap);
+    s_g = s_g + (double)(s_el * (me_f * dv_el));
+  }
+  const float grip_ratio = group_sum<G>(s_g) / (dt * pc.mass * prm.gravity);
+  const float plane_scale = 1.0f / (1.0f + pc.unload * grip_ratio);
+  const float mu_p = pc.mu_plane * plane_scale;
+
+  // unconstrained update, the elastic wedge applied
+  const float f_l = prm.kp * (prm.ctrl_l - L.ql) - prm.damping * L.qdl;
+  const float f_r = prm.kp * (prm.ctrl_r - L.qr) - prm.damping * L.qdr;
+  u[0] = L.vx + s_el * dvx_u;
+  u[1] = L.vy + s_el * dvy_u;
+  u[2] = L.vz - prm.g_dt + s_el * dvz_u;
+  u[3] = L.ox + s_el * dox_u;
+  u[4] = L.oy + s_el * doy_u;
+  u[5] = L.oz + s_el * doz_u;
+  u[6] = L.qdl + dt * f_l * pc.inv_fml + s_el * dqdl_u;
+  u[7] = L.qdr + dt * f_r * pc.inv_fmr + s_el * dqdr_u;
+
+  for (int it = 0; it < prm.solver_iters; ++it) {
+    // ---- the finger contact set ----
+    double a[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) a[q] = 0.0;
+    for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
+      float* col = slab + k * kJHeld * T;
+      JPoint j;
+      jpoint<T>(sh, prm, L, p, col, j);
+      float me_f, vn_f0, depth_el, v_cap;
+      finger_mass(pc, L, j.rx, j.ry, j.rz, j.o, me_f, vn_f0);
+      const float dv_el = wedge_dv(pc, prm, j.o, vn_f0, depth_el, v_cap);
+      const float imp_el = s_el * (me_f * dv_el);
+      const float rough_cap = pc.rough * me_f * mn(depth_el, prm.rough_sat);
+      const float wme = j.o.act_f / cnt_f * me_f;
+      const float tgt = prm.tgt_fj_v * vn_f0 + prm.tgt_fj_d * j.o.depth_f;
+      const float nx = j.o.nfx, ny = j.o.nfy, nz = j.o.nfz;
+      const float rx = j.rx, ry = j.ry, rz = j.rz;
+      const float vpx = u[0] + u[4] * rz - u[5] * ry;
+      float vpy = u[1] + u[5] * rx - u[3] * rz;
+      const float vpz = u[2] + u[3] * ry - u[4] * rx;
+      vpy = vpy - (j.o.is_l ? u[6] : u[7]);
+      const float vn = vpx * nx + vpy * ny + vpz * nz;
+      float* lam = col + kJGeo * T;
+      const float lam_n = lam[0];
+      const float new_n = mx(lam_n + wme * (tgt - vn), 0.0f);
+      const float dn = new_n - lam_n;
+      const float ltx = lam[T], lty = lam[2 * T], ltz = lam[3 * T];
+      float ctx = ltx - wme * (vpx - vn * nx);
+      float cty = lty - wme * (vpy - vn * ny);
+      float ctz = ltz - wme * (vpz - vn * nz);
+      const float cap = pc.mu_finger * (new_n + imp_el) + rough_cap;
+      const float nrm = sqrtf(ctx * ctx + cty * cty + ctz * ctz + 1e-20f);
+      const float sc = mn(cap / nrm, 1.0f);
+      ctx = ctx * sc;
+      cty = cty * sc;
+      ctz = ctz * sc;
+      lam[0] = new_n;
+      lam[T] = ctx;
+      lam[2 * T] = cty;
+      lam[3 * T] = ctz;
+      const float ix = dn * nx + (ctx - ltx);
+      const float iy = dn * ny + (cty - lty);
+      const float iz = dn * nz + (ctz - ltz);
+      const float sl = step01(j.o.is_l);
+      a[0] = a[0] + (double)ix;
+      a[1] = a[1] + (double)iy;
+      a[2] = a[2] + (double)iz;
+      a[3] = a[3] + (double)(ry * iz - rz * iy);
+      a[4] = a[4] + (double)(rz * ix - rx * iz);
+      a[5] = a[5] + (double)(rx * iy - ry * ix);
+      a[6] = a[6] + (double)(sl * iy);
+      a[7] = a[7] + (double)((1.0f - sl) * iy);
+    }
+    {
+      u[0] = u[0] + group_sum<G>(a[0]) * pc.inv_m;
+      u[1] = u[1] + group_sum<G>(a[1]) * pc.inv_m;
+      u[2] = u[2] + group_sum<G>(a[2]) * pc.inv_m;
+      const float tx = group_sum<G>(a[3]), ty = group_sum<G>(a[4]),
+                  tz = group_sum<G>(a[5]);
+      u[3] = u[3] + (L.w00 * tx + L.w01 * ty + L.w02 * tz);
+      u[4] = u[4] + (L.w01 * tx + L.w11 * ty + L.w12 * tz);
+      u[5] = u[5] + (L.w02 * tx + L.w12 * ty + L.w22 * tz);
+      u[6] = u[6] - group_sum<G>(a[6]) * pc.inv_fml;
+      u[7] = u[7] - group_sum<G>(a[7]) * pc.inv_fmr;
+    }
+    // ---- the plane set: normal (0, 0, 1), in the kernel's products ----
+#pragma unroll
+    for (int q = 0; q < 6; ++q) a[q] = 0.0;
+    for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
+      float* lam = slab + k * kJHeld * T + (kJGeo + 4) * T;
+      PGeo g;
+      float wy, wx, wz;
+      plane_geo(sh, pc, prm, L, p, g, wy, wx, wz);
+      const float rx = g.rx, ry = g.ry, rz = g.rz;
+      const float act_p = step01(prm.plane_z - wz > 0.0f);
+      const float nrx = -rx;
+      const float wxp = L.w00 * ry + L.w01 * nrx;
+      const float wyp = L.w01 * ry + L.w11 * nrx;
+      const float me_p = 1.0f / (pc.inv_m + (ry * wxp + nrx * wyp));
+      const float wme = act_p / cnt_p * me_p;
+      const float vpx = u[0] + u[4] * rz - u[5] * ry;
+      const float vpy = u[1] + u[5] * rx - u[3] * rz;
+      const float vpz = u[2] + u[3] * ry - u[4] * rx;
+      const float vn = vpx * 0.0f + vpy * 0.0f + vpz * 1.0f;
+      const float lam_n = lam[0];
+      const float new_n = mx(lam_n + wme * (g.tgt_pn - vn), 0.0f);
+      const float dn = new_n - lam_n;
+      const float ltx = lam[T], lty = lam[2 * T], ltz = lam[3 * T];
+      float ctx = ltx - wme * (vpx - vn * 0.0f);
+      float cty = lty - wme * (vpy - vn * 0.0f);
+      float ctz = ltz - wme * (vpz - vn * 1.0f);
+      const float cap = mu_p * new_n;
+      const float nrm = sqrtf(ctx * ctx + cty * cty + ctz * ctz + 1e-20f);
+      const float sc = mn(cap / nrm, 1.0f);
+      ctx = ctx * sc;
+      cty = cty * sc;
+      ctz = ctz * sc;
+      lam[0] = new_n;
+      lam[T] = ctx;
+      lam[2 * T] = cty;
+      lam[3 * T] = ctz;
+      const float ix = dn * 0.0f + (ctx - ltx);
+      const float iy = dn * 0.0f + (cty - lty);
+      const float iz = dn * 1.0f + (ctz - ltz);
+      a[0] = a[0] + (double)ix;
+      a[1] = a[1] + (double)iy;
+      a[2] = a[2] + (double)iz;
+      a[3] = a[3] + (double)(ry * iz - rz * iy);
+      a[4] = a[4] + (double)(rz * ix - rx * iz);
+      a[5] = a[5] + (double)(rx * iy - ry * ix);
+    }
+    u[0] = u[0] + group_sum<G>(a[0]) * pc.inv_m;
+    u[1] = u[1] + group_sum<G>(a[1]) * pc.inv_m;
+    u[2] = u[2] + group_sum<G>(a[2]) * pc.inv_m;
+    const float tx = group_sum<G>(a[3]), ty = group_sum<G>(a[4]),
+                tz = group_sum<G>(a[5]);
+    u[3] = u[3] + (L.w00 * tx + L.w01 * ty + L.w02 * tz);
+    u[4] = u[4] + (L.w01 * tx + L.w11 * ty + L.w12 * tz);
+    u[5] = u[5] + (L.w02 * tx + L.w12 * ty + L.w22 * tz);
+  }
+}
+
+template <int G, int Solver>
 __global__ void __launch_bounds__(rollout::Layout<G>::kThreads,
                                    rollout::Layout<G>::kMinBlocks)
 rollout3d_kernel(const float* __restrict__ coefs,     // (B, 2, 24, 4, 3)
@@ -897,11 +1259,14 @@ rollout3d_kernel(const float* __restrict__ coefs,     // (B, 2, 24, 4, 3)
   float* s_scal = s_coef + 2 * kTotSeg * kCoef; // 32
   float* s_pair = s_scal + kScal;               // kPairFloats
   int* s_vote = reinterpret_cast<int*>(s_pair + kPairFloats);  // 2 * kCluster
-  float* s_lane = s_pair + kPairFloats + 2 * kCluster;   // per rollout
+  unsigned* warp_slots =
+      reinterpret_cast<unsigned*>(s_vote + 2 * kCluster);    // kWarpSlots
+  float* s_lane = s_pair + kPairFloats + 2 * kCluster + kWarpSlots;
   float* s_pbx = s_lane + LO::kRollouts * kLaneStride;   // P
   float* s_pby = s_pbx + P;                     // P
   float* s_pbz = s_pby + P;                     // P
-  // kHeld floats a point, ceil(P / G) points a lane, one column a thread
+  // kHeld (Jacobi: kJHeld) floats a point, ceil(P / G) points a lane, one
+  // column a thread
   float* slab = s_pbz + P + tid;
   for (int k = tid; k < 2 * kTotSeg * kCoef; k += kThreads)
     s_coef[k] = coefs[(size_t)pair * 2 * kTotSeg * kCoef + k];
@@ -949,6 +1314,8 @@ rollout3d_kernel(const float* __restrict__ coefs,     // (B, 2, 24, 4, 3)
     w.tgt_f_v = 1.0f - prm.d_imp * b_cal * prm.dt;
     w.tgt_f_d = prm.d_imp_dt * k_cal;
     w.mg_dt = w.mass * prm.gravity * prm.dt;
+    w.k_cal = k_cal;
+    w.b_cal = b_cal;
   }
   __syncthreads();
 
@@ -967,7 +1334,10 @@ rollout3d_kernel(const float* __restrict__ coefs,     // (B, 2, 24, 4, 3)
     pose_x = poses[(size_t)j * 3 + 0];
     pose_y = poses[(size_t)j * 3 + 1];
     theta0 = poses[(size_t)j * 3 + 2];
-    if (lane_in_rollout<G>() == 0) L.pose = j;
+    if (lane_in_rollout<G>() == 0) {
+      L.pose = j;
+      L.iters = 0.0f;
+    }
   }
   const float half = theta0 * 0.5f;
   const float qw0 = cosf(half), qz0 = sinf(half);
@@ -1067,19 +1437,32 @@ rollout3d_kernel(const float* __restrict__ coefs,     // (B, 2, 24, 4, 3)
       }
       const float* uu = L.uu;
       float u[8];
-#pragma unroll
-      for (int a = 0; a < 8; ++a) u[a] = uu[a];
-      const bool near = (wyn <= prm.surf_l0 + ql + pc.fmax_l) ||
-                        (wyx >= prm.surf_r0 + qr + pc.fmin_r);
-      const bool any_f = vote.any(near);
-      if (lane_in_rollout<G>() == 0) {
-        L.keep[10] = cnt_f + (any_f ? 1.0f : 0.0f);
-        L.keep[11] = cnt_c + (any_f ? 0.0f : 1.0f);
-      }
-      if (any_f) {
-        full_solve<G>(sh, pc, prm, L, P, slab, uu, u);
+      if constexpr (Solver == kJacobi) {
+        // every normal step is a full Jacobi solve
+        if (lane_in_rollout<G>() == 0) {
+          L.keep[10] = cnt_f + 1.0f;
+          L.keep[11] = cnt_c;
+        }
+        jacobi_solve<G>(sh, pc, prm, L, P, slab, u);
       } else {
-        cheap_solve<G>(sh, pc, prm, L, P, uu, u);
+#pragma unroll
+        for (int a = 0; a < 8; ++a) u[a] = uu[a];
+        const bool near = (wyn <= prm.surf_l0 + ql + pc.fmax_l) ||
+                          (wyx >= prm.surf_r0 + qr + pc.fmin_r);
+        const bool any_f = vote.any(near);
+        if (lane_in_rollout<G>() == 0) {
+          L.keep[10] = cnt_f + (any_f ? 1.0f : 0.0f);
+          L.keep[11] = cnt_c + (any_f ? 0.0f : 1.0f);
+        }
+        if (any_f) {
+          const int its = full_solve<G, Solver == kNewtonTol>(
+              sh, pc, prm, L, P, slab, uu, u, vote, warp_slots);
+          if constexpr (Solver == kNewtonTol) {
+            if (lane_in_rollout<G>() == 0) L.iters = L.iters + (float)its;
+          }
+        } else {
+          cheap_solve<G>(sh, pc, prm, L, P, uu, u);
+        }
       }
       vx = u[0]; vy = u[1]; vz = u[2];
       ox = u[3]; oy = u[4]; oz = u[5];
@@ -1149,13 +1532,20 @@ rollout3d_kernel(const float* __restrict__ coefs,     // (B, 2, 24, 4, 3)
   out[8 * plane + o] = sorg_y - pose_y;
   out[9 * plane + o] = cnt_f;
   out[10 * plane + o] = cnt_c;
-  // every full solve runs newton_iters iterations (exact in float32)
-  out[11 * plane + o] = cnt_f * (float)prm.newton_iters;
+  // iterations: counted where the solve is adaptive; else every full solve
+  // runs newton_iters (Jacobi: solver_iters) of them (exact in float32)
+  if constexpr (Solver == kNewtonTol)
+    out[11 * plane + o] = L.iters;
+  else
+    out[11 * plane + o] =
+        cnt_f * (float)(Solver == kJacobi ? prm.solver_iters
+                                          : prm.newton_iters);
 }
 
 }  // namespace
 
-// `plan` (5 ints, may be null) receives the rollout::Plan of the launch.
+// `plan` (5 ints, may be null) receives the rollout::Plan of the launch;
+// prm.solver picks the instantiation (kNewton, kJacobi, kNewtonTol).
 // Nothing is launched, and an error comes back, when P needs more shared
 // memory than a block may have or the card cannot hold one cluster
 // (rollout::launch_clusters).
@@ -1165,15 +1555,26 @@ extern "C" int rollout3d_launch(const float* coefs, const float* points,
                                 Rollout3DParams prm, int* plan, void* stream) {
   constexpr int G = kThreadsPerRollout;
   using LO = rollout::Layout<G>;
-  if (B <= 0 || P <= 0 || N <= 0 || N % kLane != 0)
+  if (B <= 0 || P <= 0 || N <= 0 || N % kLane != 0 ||
+      prm.solver < kNewton || prm.solver > kNewtonTol)
     return (int)cudaErrorInvalidValue;
+  const size_t held = prm.solver == kJacobi ? kJHeld : kHeld;
   const size_t smem =
       sizeof(float) * (2 * kTotSeg * kCoef + kScal + kPairFloats +
                        LO::kRollouts * kLaneStride + 3 * P +
-                       kHeld * LO::kThreads * (size_t)((P + G - 1) / G)) +
-      sizeof(int) * 2 * LO::kCluster;
+                       held * LO::kThreads * (size_t)((P + G - 1) / G)) +
+      sizeof(int) * (2 * LO::kCluster + kWarpSlots);
+  const dim3 grid((N / kLane) * LO::kCluster, B);
+  rollout::Plan* pl = reinterpret_cast<rollout::Plan*>(plan);
+  if (prm.solver == kJacobi)
+    return rollout::launch_clusters<LO>(
+        rollout3d_kernel<G, kJacobi>, grid, smem, (cudaStream_t)stream, pl,
+        G, coefs, points, scalars, poses, out, B, P, N, prm);
+  if (prm.solver == kNewtonTol)
+    return rollout::launch_clusters<LO>(
+        rollout3d_kernel<G, kNewtonTol>, grid, smem, (cudaStream_t)stream,
+        pl, G, coefs, points, scalars, poses, out, B, P, N, prm);
   return rollout::launch_clusters<LO>(
-      rollout3d_kernel<G>, dim3((N / kLane) * LO::kCluster, B), smem,
-      (cudaStream_t)stream, reinterpret_cast<rollout::Plan*>(plan), G, coefs,
-      points, scalars, poses, out, B, P, N, prm);
+      rollout3d_kernel<G, kNewton>, grid, smem, (cudaStream_t)stream, pl, G,
+      coefs, points, scalars, poses, out, B, P, N, prm);
 }

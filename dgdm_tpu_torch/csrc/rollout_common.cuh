@@ -135,6 +135,42 @@ struct GroupVote {
     return r;
   }
 
+  // the largest of the kCluster blocks' values (threads 0..kCluster-1 of
+  // each block hold their block's value; the slots are shared with the
+  // OR votes and their parity)
+  __device__ __forceinline__ unsigned across_max(unsigned mine) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int base = parity * CS;
+    if (threadIdx.x < CS) {
+      int* peer = cluster.map_shared_rank(
+          slots + base + (int)cluster.block_rank(), threadIdx.x);
+      *peer = (int)mine;
+    }
+    cluster.sync();
+    const volatile int* s = slots;
+    unsigned r = 0u;
+#pragma unroll
+    for (int k = 0; k < CS; ++k) r = max(r, (unsigned)s[base + k]);
+    parity ^= 1;
+    return r;
+  }
+
+  // Max over the pose group of non-negative floats (their bit patterns
+  // order as unsigned integers, +inf and NaN above every finite value):
+  // a warp reduction, the block's warps through `warp_slots` (2 * 32
+  // words of this block's shared memory, by vote parity), then the blocks
+  // of the cluster. Every thread of the cluster calls it.
+  __device__ __forceinline__ float max_nonneg(float v, unsigned* warp_slots) {
+    const unsigned w = __reduce_max_sync(0xffffffffu, __float_as_uint(v));
+    unsigned* ws = warp_slots + parity * 32;
+    if ((threadIdx.x & 31) == 0) ws[threadIdx.x >> 5] = w;
+    __syncthreads();
+    unsigned b = 0u;
+    if (threadIdx.x < CS)
+      for (int k = 0; k < (int)(blockDim.x >> 5); ++k) b = max(b, ws[k]);
+    return __uint_as_float(across_max(b));
+  }
+
   // one bit
   __device__ __forceinline__ bool any(bool b) {
     return across(__syncthreads_or(b) ? 1 : 0) != 0;

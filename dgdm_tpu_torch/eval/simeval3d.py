@@ -1,12 +1,13 @@
 """3D simulation-in-the-loop evaluation — port of
-``dgdm_tpu/eval/simeval3d.py`` (``sim_eval_batch_3d`` on the rollout kernel's
-path; the pure-engine ``eval_rollout_batch_3d`` waits for the port of the
-engine).
+``dgdm_tpu/eval/simeval3d.py`` (``eval_rollout_batch_3d``,
+``sim_eval_batch_3d``).
 
 Counterpart of ``dynamics/sim_test_mj_3d.py:94-277``: 360 orientations x
 32,000 steps with the jaws and velocities reset every 800 steps, the profile
 recorded after the first squeeze (t = 800) and the final pose at the end —
-one launch of the rollout kernel per object, all grippers batched.
+one launch of the rollout kernel per object, all grippers batched, with the
+contact solver of ``engine3d.SOLVER3``. ``eval_rollout_batch_3d`` runs the
+same schedule through the pure engine.
 """
 
 from __future__ import annotations
@@ -20,6 +21,39 @@ from dgdm_tpu_torch.core.config import NORM, SIM
 from dgdm_tpu_torch.eval.metrics import three_class, wrap_pi
 from dgdm_tpu_torch.geom.fingers import denormalize_y
 from dgdm_tpu_torch.sim import datagen, engine3d, rollout3d
+
+
+def eval_rollout_batch_3d(
+    scenes,
+    thetas: torch.Tensor,
+    first_squeeze: int = SIM.eval_regrasp_3d,
+    total_steps: int = SIM.eval_steps_3d,
+    regrasp_every: int = SIM.eval_regrasp_3d,
+):
+    """The verification schedule on the pure engine. scenes: stacked pair
+    batch (B) of Scene3D (its height grid is filled here if unset); thetas
+    (G,) initial orientations at position (0, 0), on the scenes' device.
+
+    Returns per (B, G): delta_theta/delta_pos after the first squeeze and
+    final_theta/final_pos after the full re-grasp schedule."""
+    if not 0 < first_squeeze <= total_steps:
+        raise ValueError(f"first_squeeze {first_squeeze} must lie in "
+                         f"(0, total_steps = {total_steps}]")
+    sc = engine3d.expand_scene3(engine3d.with_hgrid(scenes), 1)
+    zero = torch.zeros_like(thetas)
+    pose = torch.stack([zero, zero, thetas], -1)
+    state = engine3d.init_state(sc, pose)
+    ctrl = torch.tensor([SIM.ctrl_3d, -SIM.ctrl_3d], dtype=torch.float32,
+                        device=thetas.device)
+    d_theta = d_pos = None
+    for i in range(total_steps):
+        rg = regrasp_every > 0 and i % regrasp_every == 0 and i > 0
+        state = engine3d.step(sc, state, ctrl, regrasp=rg)
+        if i + 1 == first_squeeze:
+            d_theta, d_pos = engine3d._readout(sc, state, pose)[:2]
+    final_theta = engine3d._z_angle(state.quat)
+    final_pos = engine3d._readout(sc, state, pose)[1]
+    return d_theta, d_pos, final_theta, final_pos
 
 
 def sim_eval_batch_3d(

@@ -39,10 +39,16 @@ OUT_KEYS_2D = ("delta_theta", "delta_pos", "final_theta")
 
 
 def stack_scenes(scenes: Sequence[Scene2D]) -> Scene2D:
-    """Stack Scene2D or Scene3D pairs along a new leading dimension."""
+    """Stack Scene2D or Scene3D pairs along a new leading dimension (a field
+    that is None in every pair, as ``Scene3D.hgrid`` before the pure engine
+    fills it, stays None)."""
     cls = type(scenes[0])
-    return cls(**{f.name: torch.stack([getattr(s, f.name) for s in scenes])
-                  for f in dataclasses.fields(cls)})
+    out = {}
+    for f in dataclasses.fields(cls):
+        vals = [getattr(s, f.name) for s in scenes]
+        out[f.name] = (None if all(v is None for v in vals)
+                       else torch.stack(vals))
+    return cls(**out)
 
 
 def pad_poses(poses: np.ndarray, lane: int = rollout2d.LANE) -> np.ndarray:

@@ -8,6 +8,9 @@ give-up semantics (``sim/sim_3d.py:159-161``) are per-rollout validity
 masks; a pair's record is only written when ALL its rollouts stay upright,
 the reference's all-or-nothing output. One ``object_properties_3d`` per
 object is shared by a gripper block, so K2 runs at its 256 contact points.
+``profile_pairs_3d(use_pallas=False)`` runs the pure engine instead
+(``engine3d.profile_batch``), ``pose_chunk`` poses a call, as the JAX
+package does off the TPU.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from dgdm_tpu_torch.core.config import GRIPPER_3D, SIM
 from dgdm_tpu_torch.geom.fingers import ctrlpts_3d, sample_gripper_3d
@@ -35,6 +39,7 @@ from dgdm_tpu_torch.sim.datagen import (
     stack_scenes,
 )
 from dgdm_tpu_torch.sim.engine2d import Calib, pose_grid
+from dgdm_tpu_torch.sim.types import to_device
 
 OUT_KEYS_3D = ("delta_theta", "delta_pos", "valid")
 
@@ -76,16 +81,33 @@ def profile_pairs_3d(
     calib: Optional[Calib] = None,
     block: bool = True,
     device="cuda",
+    use_pallas: bool = True,
+    pose_chunk: int = 450,
 ):
     """Full pose grid for a stacked 3D scene batch -> (dth, dpos, valid),
-    each (B, N) (dpos (B, N, 2)). With ``block=False`` it returns once the
-    work is queued; materialize with ``fetch_pairs_3d``."""
-    arrs = rollout3d.scene_arrays_3d(stacked, calib=calib, device=device)
+    each (B, N) (dpos (B, N, 2)). Default path: the rollout kernel (its
+    plain version for CPU tensors), the pose batch padded to a multiple of
+    128. ``use_pallas=False``: the pure engine on the scenes' baked height
+    grids, ``pose_chunk`` poses a call. With ``block=False`` it returns once
+    the work is queued; materialize with ``fetch_pairs_3d``."""
+    if use_pallas:
+        arrs = rollout3d.scene_arrays_3d(stacked, calib=calib,
+                                         device=device)
 
-    def run(p):
-        dth, dpos, _, valid, _ = rollout3d.profile_batch(*arrs, p,
-                                                         steps=steps)
-        return dth, dpos, valid
+        def run(p):
+            dth, dpos, _, valid, _ = rollout3d.profile_batch(*arrs, p,
+                                                             steps=steps)
+            return dth, dpos, valid
+    else:
+        n = poses.shape[0]
+        sc = to_device(engine3d.with_hgrid(stacked), device)
+
+        def run(p):
+            outs = [engine3d.profile_batch(sc, p[lo:min(lo + pose_chunk, n)],
+                                           steps=steps, calib=calib)
+                    for lo in range(0, n, pose_chunk)]
+            return [torch.cat([o[k] for o in outs], dim=1)
+                    for k in (0, 1, 3)]
 
     res = launch(run, OUT_KEYS_3D, poses, device)
     return res if not block else fetch_pairs_3d(res)

@@ -47,10 +47,10 @@ from dgdm_tpu_torch.sim.types import Scene2D, State2D
 class Calib:
     """Effective-parameter knobs fitted against the MuJoCo oracle (see
     ``dgdm_tpu/sim/engine2d.py:Calib`` for the derivation of each): the
-    eight that the 2D solvers read, and ``restitution``, which the 3D
-    rollout kernel reads (an exact no-op at its default 0.0). The JAX
-    package's other 3D probe knobs (all no-ops at their defaults) wait for
-    the slice that ports the pure 3D engine.
+    eight that the 2D solvers read, ``restitution`` (read by the 3D Newton
+    step and the 3D rollout kernel), and the ten clamp-snap probe knobs that
+    only the pure 3D Newton step reads (``engine3d.step_newton3``). Every
+    knob after ``c_r`` is an exact no-op at its default.
 
     A field is a float or a 0-d tensor: the pure engine takes tensors as
     they are, so gradients reach them (``dataclasses.replace`` swaps one
@@ -66,6 +66,18 @@ class Calib:
     rough: float               # crack-capture tangential stiction gain (1/s)
     c_r: float                 # constraint compliance scale (Newton solver)
     restitution: float = 0.0   # finger-row velocity restitution (3D Newton)
+    # the 3D Newton step's clamp-snap probes (all measured and rejected in
+    # the JAX package, kept wired as documented negative results)
+    lam_sat: float = 0.0       # pressure-saturating finger friction cap
+    om_release: float = 0.0    # body-spin friction release
+    v_gate: float = 0.0        # closing-speed friction gate (m/s)
+    mu_ballistic: float = 1.0  # floor scale of om_release / v_gate
+    ram: float = 0.0           # ram-contact inelastic absorption
+    w_fmult: float = 1.0       # finger-row enforcement multiplicity
+    clamp_k: float = 0.0       # clamp-regime plane-braced admittance boost
+    clamp_press: float = 0.0   # clamp-press target toward MuJoCo's solref
+    plane_corner: float = 0.0  # footprint-corner plane support blend
+    clamp_w: float = 1.0       # clamp-regime scalar weight boost
 
 
 CALIB_FIELDS = tuple(f.name for f in dataclasses.fields(Calib))

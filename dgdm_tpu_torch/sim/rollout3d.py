@@ -12,13 +12,18 @@ a shared pose batch and runs every (pair, pose) rollout for all steps:
 
 The kernel gives a rollout 32 threads of a warp (a 128-pose group is one
 thread block cluster) and holds each thread's per-point contact geometry in
-shared memory; ``LAST_PLAN`` holds the layout of the last launch.
+shared memory; ``LAST_PLAN`` holds the layout of the last launch. It has
+three instantiations: the coupled Newton solve with a fixed iteration count,
+the same solve with the adaptive ``newton_tol`` loop, and projected Jacobi
+(``solver="jacobi"``, ``pallas3d.py:302-433``). The arguments mirror the
+static ones of ``_profile_batch_pallas3d``: ``solver`` (None reads
+``engine3d.SOLVER3`` at call time; "pyramid" runs the Newton branch, as the
+Pallas kernel does), ``newton_iters`` (None reads ``NEWTON_KERNEL_ITERS3``)
+and ``newton_tol``.
 
 There is no fallback between the two: a CUDA tensor launches the kernel or
-raises. ``KERNEL_LAUNCHES["rollout3d"]`` counts kernel launches. The contact
-solver is the coupled Newton solve that the JAX wrapper resolves from
-``engine3d.SOLVER3``; the Pallas kernel's ``solver="jacobi"`` branch and its
-adaptive ``newton_tol`` loop are not ported.
+raises. ``KERNEL_LAUNCHES`` counts kernel launches per instantiation:
+``"rollout3d"``, ``"rollout3d_newton_tol"`` and ``"rollout3d_jacobi"``.
 """
 
 from __future__ import annotations
@@ -50,8 +55,15 @@ from dgdm_tpu_torch.sim.surface_fit import (
     fit_surface_batch,
 )
 
-# kernel launches per wrapper, for showing that a run went through them
-KERNEL_LAUNCHES = {"rollout3d": 0}
+# full-solve Newton iterations a step of the kernel (pallas3d.py:47; the pure
+# engine's count is engine3d.NEWTON_ITERS3)
+NEWTON_KERNEL_ITERS3 = 1
+# kernel launches per instantiation, for showing that a run went through them
+KERNEL_LAUNCHES = {"rollout3d": 0, "rollout3d_newton_tol": 0,
+                   "rollout3d_jacobi": 0}
+# the kernel's instantiations (csrc/rollout3d.cu) and their counters
+SOLVER_CODES = {"rollout3d": 0, "rollout3d_jacobi": 1,
+                "rollout3d_newton_tol": 2}
 # threads per rollout, blocks per cluster, threads per block,
 # cudaOccupancyMaxActiveClusters and bytes of shared memory a block, of the
 # last launch
@@ -65,15 +77,17 @@ _FLOAT_PARAMS = (
     "dt", "d_imp", "ctrl_l", "ctrl_r", "kp", "damping", "x0f", "x1f", "z0f",
     "z1f", "hseg", "hzseg", "inv_hseg", "inv_hzseg", "surf_l0", "surf_r0",
     "plane_z", "tgt_p_v", "tgt_p_d", "g_dt", "gravity", "d_imp_dt", "v_rest",
-    "depth_el_cap", "eps_settled", "marg", "tip_atol")
+    "depth_el_cap", "eps_settled", "marg", "tip_atol", "tgt_fj_v",
+    "tgt_fj_d", "rough_sat")
 
 
 class _Params(ctypes.Structure):
     """Mirror of ``Rollout3DParams`` in csrc/rollout3d.cu."""
 
     _fields_ = [(k, ctypes.c_int) for k in
-                ("steps", "regrasp_every", "snapshot_step", "newton_iters")] + [
-        (k, ctypes.c_float) for k in _FLOAT_PARAMS]
+                ("steps", "regrasp_every", "snapshot_step", "newton_iters",
+                 "solver", "solver_iters")] + [
+        (k, ctypes.c_float) for k in ("newton_tol",) + _FLOAT_PARAMS]
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -86,11 +100,21 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIBRARY = CudaLibrary("rollout3d.cu", _bind)
 
 
-def _params(steps, regrasp_every, snapshot_step) -> _Params:
+def instantiation(solver: Optional[str] = None,
+                  newton_tol: float = 0.0) -> str:
+    """The kernel instantiation (and launch counter) of a call."""
+    if engine3d.resolve_solver3(solver) == "jacobi":
+        return "rollout3d_jacobi"
+    return "rollout3d_newton_tol" if newton_tol > 0.0 else "rollout3d"
+
+
+def _params(steps, regrasp_every, snapshot_step, inst, newton_iters,
+            newton_tol) -> _Params:
     k = constants()
     return _Params(steps=steps, regrasp_every=regrasp_every,
-                   snapshot_step=snapshot_step,
-                   newton_iters=engine3d.NEWTON_ITERS3,
+                   snapshot_step=snapshot_step, newton_iters=newton_iters,
+                   solver=SOLVER_CODES[inst],
+                   solver_iters=engine3d.SOLVER_ITERS, newton_tol=newton_tol,
                    **{name: k[name] for name in _FLOAT_PARAMS})
 
 
@@ -116,8 +140,14 @@ def _check_inputs(coefs, points, scalars, poses):
 
 
 def rollout_cuda(coefs, points, scalars, poses, steps, regrasp_every,
-                 snapshot_step):
-    """Launch csrc/rollout3d.cu on the current stream -> (12, B, N) float32."""
+                 snapshot_step, solver=None, newton_iters=None,
+                 newton_tol: float = 0.0):
+    """Launch csrc/rollout3d.cu on the current stream -> (12, B, N) float32.
+    The launcher refuses a point count whose shared-memory slab does not fit
+    a block (P > 256 on the H100, 12 floats a point for each solver)."""
+    inst = instantiation(solver, newton_tol)
+    if newton_iters is None:
+        newton_iters = NEWTON_KERNEL_ITERS3
     lib = LIBRARY.get()
     ins = [t.contiguous() for t in (coefs, points, scalars, poses)]
     b, p, n = points.shape[0], points.shape[1], poses.shape[0]
@@ -126,37 +156,46 @@ def rollout_cuda(coefs, points, scalars, poses, steps, regrasp_every,
     plan = (ctypes.c_int * 5)()
     err = lib.rollout3d_launch(
         *[t.data_ptr() for t in ins], out.data_ptr(), b, p, n,
-        _params(steps, regrasp_every, snapshot_step), ctypes.byref(plan),
-        stream)
+        _params(steps, regrasp_every, snapshot_step, inst, int(newton_iters),
+                float(newton_tol)), ctypes.byref(plan), stream)
     LAST_PLAN.update(zip(("threads_per_rollout", "cluster", "threads",
                           "max_active_clusters", "shared_bytes"), plan))
     if err != 0:
         raise RuntimeError(
             f"rollout3d kernel launch failed: CUDA error {err} (launch plan "
-            f"{LAST_PLAN}; the shared memory a block needs grows with the "
-            f"point count, {p} here)")
-    KERNEL_LAUNCHES["rollout3d"] += 1
+            f"{LAST_PLAN}, {inst}; the shared memory a block needs grows "
+            f"with the point count, {p} here)")
+    KERNEL_LAUNCHES[inst] += 1
     return out
 
 
 def rollout(coefs, points, scalars, poses, steps: int = SIM.steps_3d,
-            regrasp_every: int = 0,
-            snapshot_step: int = 0) -> Tuple[torch.Tensor, ...]:
+            regrasp_every: int = 0, snapshot_step: int = 0,
+            solver: Optional[str] = None, newton_iters: Optional[int] = None,
+            newton_tol: float = 0.0) -> Tuple[torch.Tensor, ...]:
     """The 12 raw (B, N) outputs named by ``rollout3d_ref.OUT_NAMES``."""
     _check_inputs(coefs, points, scalars, poses)
+    solver = engine3d.resolve_solver3(solver)
+    if newton_iters is None:
+        newton_iters = NEWTON_KERNEL_ITERS3
+    kw = dict(solver=solver, newton_iters=newton_iters,
+              newton_tol=newton_tol)
     if poses.device.type == "cuda":
         return tuple(rollout_cuda(coefs, points, scalars, poses, steps,
-                                  regrasp_every, snapshot_step))
+                                  regrasp_every, snapshot_step, **kw))
     if poses.device.type == "cpu":
         return profile_batch_ref(coefs, points, scalars, poses, steps=steps,
                                  regrasp_every=regrasp_every,
-                                 snapshot_step=snapshot_step)
+                                 snapshot_step=snapshot_step, **kw)
     raise ValueError(f"no rollout path for device {poses.device}")
 
 
 def profile_batch(coefs, points, scalars, poses, steps: int = SIM.steps_3d,
                   regrasp_every: int = 0, snapshot_step: int = 0,
-                  return_step_mix: bool = False):
+                  return_step_mix: bool = False,
+                  solver: Optional[str] = None,
+                  newton_iters: Optional[int] = None,
+                  newton_tol: float = 0.0):
     """Fused rollouts: (B pairs) x (N poses) -> (dtheta (B, N), snapshot
     dpos (B, N, 2), final theta (B, N), valid (B, N) bool, final dpos
     (B, N, 2)); with ``return_step_mix`` also the per-block (full, cheap,
@@ -166,7 +205,9 @@ def profile_batch(coefs, points, scalars, poses, steps: int = SIM.steps_3d,
     first-squeeze profile of the eval schedule) while the rollout continues
     to ``steps``; 0 snapshots at the end (datagen)."""
     out = rollout(coefs, points, scalars, poses, steps=steps,
-                  regrasp_every=regrasp_every, snapshot_step=snapshot_step)
+                  regrasp_every=regrasp_every, snapshot_step=snapshot_step,
+                  solver=solver, newton_iters=newton_iters,
+                  newton_tol=newton_tol)
     res = readout(*out[:9], poses)
     return res + (tuple(out[9:]),) if return_step_mix else res
 

@@ -1,7 +1,8 @@
 """Plain PyTorch version of the 3D rollout kernel (K2) — the same math as
-``dgdm_tpu/sim/pallas3d.py:_rollout3d_kernel`` on its Newton path (the
-package's default solver, ``engine3d.SOLVER3``), on dense tensors, with a
-Python step loop.
+``dgdm_tpu/sim/pallas3d.py:_rollout3d_kernel``, both of its contact solvers
+(the coupled Newton solve with its fixed iteration count or its adaptive
+``newton_tol`` loop, and ``solver="jacobi"``: projected Jacobi with an
+explicit elastic wedge), on dense tensors, with a Python step loop.
 
 Layout: lanes are poses, grouped in blocks of ``LANE`` = 128 exactly as the
 Pallas grid groups them; the (pair, pose-block) cells are flattened to G =
@@ -28,19 +29,21 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dgdm_tpu_torch.core.config import GRIPPER_3D, SIM
-from dgdm_tpu_torch.sim.engine2d import DEPTH_EL_CAP, IMPEDANCE
-from dgdm_tpu_torch.sim.engine3d import (
-    B_PLANE3,
-    K_PLANE3,
-    NEWTON_ITERS3,
-    V_REST_THRESH,
+from dgdm_tpu_torch.sim import engine3d
+from dgdm_tpu_torch.sim.engine2d import (
+    B_CONTACT,
+    DEPTH_EL_CAP,
+    IMPEDANCE,
+    K_CONTACT,
+    ROUGH_SAT,
 )
+from dgdm_tpu_torch.sim.engine3d import B_PLANE3, K_PLANE3, V_REST_THRESH
 from dgdm_tpu_torch.sim.point_sum import point_sum
 from dgdm_tpu_torch.sim.surface_fit import DEG_X, DEG_Z, N_SEG, NZ_SEG, TOT_SEG
 
@@ -80,6 +83,10 @@ def constants() -> Dict[str, float]:
         "plane_z": f(SIM.plane_z),
         "tgt_p_v": f(1.0) - d_imp * f(B_PLANE3) * dt,
         "tgt_p_d": d_imp * dt * f(K_PLANE3),
+        # the Jacobi branch's finger targets take the uncalibrated gains
+        "tgt_fj_v": f(1.0) - d_imp * f(B_CONTACT) * dt,
+        "tgt_fj_d": d_imp * dt * f(K_CONTACT),
+        "rough_sat": f(ROUGH_SAT),
         "g_dt": dt * f(SIM.gravity), "gravity": f(SIM.gravity),
         "d_imp_dt": d_imp * dt,
         "v_rest": f(V_REST_THRESH), "depth_el_cap": f(DEPTH_EL_CAP),
@@ -300,23 +307,36 @@ def _normal_step(st, pr: _Pairs, k):
     lane = dict(ql=ql, qr=qr, qdl=qdl, qdr=qdr, mass=mass,
                 fmass_l=fmass_l, fmass_r=fmass_r, inv_m=inv_m,
                 inv_fml=inv_fml, inv_fmr=inv_fmr, mg_dt=mg_dt, iw=iw, w=w)
-    u = [x.clone() for x in u_unc]
-    for take, solve in ((any_f, _full_solve), (~any_f, _cheap_solve)):
-        rows = torch.nonzero(take).flatten()
-        if rows.numel() == 0:
-            continue
-        sub = lambda x: x.index_select(0, rows)                 # noqa: E731
-        us = solve({a: sub(b) for a, b in geo.items()},
-                   {a: (tuple(sub(x) for x in b) if isinstance(b, tuple)
-                        else sub(b)) for a, b in lane.items()},
-                   [sub(x) for x in u_unc], pr.select(rows), k)
-        for a in range(8):
-            u[a].index_copy_(0, rows, us[a])
-    vx, vy, vz, ox, oy, oz, qdl, qdr = u
-    mf = any_f.to(torch.float32)[:, None]
-    cnt_f = cnt_f + mf
-    cnt_c = cnt_c + (1.0 - mf)
-    cnt_i = cnt_i + mf * float(NEWTON_ITERS3)
+    if k["solver"] == "jacobi":
+        # every normal step is a full Jacobi solve (no cheap path)
+        w_p = act_p / torch.clamp(_rsum_of(k)(act_p)[:, None, :], min=1.0)
+        vx, vy, vz, ox, oy, oz, qdl, qdr = _jacobi_solve(
+            dict(geo, w_p=w_p), lane, [vx, vy, vz, ox, oy, oz, qdl, qdr],
+            pr, k)
+        cnt_f = cnt_f + 1.0
+        cnt_i = cnt_i + float(k["solver_iters"])
+    else:
+        u = [x.clone() for x in u_unc]
+        iters = torch.zeros_like(px[:, :1])
+        for take, solve in ((any_f, _full_solve), (~any_f, _cheap_solve)):
+            rows = torch.nonzero(take).flatten()
+            if rows.numel() == 0:
+                continue
+            sub = lambda x: x.index_select(0, rows)             # noqa: E731
+            us, its = solve({a: sub(b) for a, b in geo.items()},
+                            {a: (tuple(sub(x) for x in b)
+                                 if isinstance(b, tuple) else sub(b))
+                             for a, b in lane.items()},
+                            [sub(x) for x in u_unc], pr.select(rows), k)
+            for a in range(8):
+                u[a].index_copy_(0, rows, us[a])
+            iters.index_copy_(0, rows, its)
+        vx, vy, vz, ox, oy, oz, qdl, qdr = u
+        mf = any_f.to(torch.float32)[:, None]
+        cnt_f = cnt_f + mf
+        cnt_c = cnt_c + (1.0 - mf)
+        # the full-solve Newton iterations taken (cheap solves add 0)
+        cnt_i = cnt_i + iters
 
     # integrate
     px = px + dt * vx
@@ -348,20 +368,16 @@ def _hub_sum(_rsum, vn, vt2, w, cap, tgt):
     return _rsum(e_n + e_t)
 
 
-def _full_solve(geo, ln, u_unc, pr: _Pairs, k):
-    """Coupled semi-smooth Newton on the 8-DOF soft-constraint energy
-    (pallas3d.py:497-737): u = (vx, vy, vz, ox, oy, oz, qdl, qdr)."""
+def _finger_geometry(geo, ln, pr: _Pairs, k):
+    """Finger narrow phase of the rows' points (pallas3d.py:243-285): the
+    two surface evaluations, the merged contact set (a point touches the
+    deeper jaw), normals, contact frames, effective masses and the
+    pre-update normal velocity, each (G', P, L)."""
     e = lambda x: x[:, None, :]                                 # noqa: E731
-    _rsum = _rsum_of(k)
     rx, ry, rz = geo["rx"], geo["ry"], geo["rz"]
     wx, wy, wz = geo["wx"], geo["wy"], geo["wz"]
-    w_np, tgt_pn = geo["w_np"], geo["tgt_p"]
     vpx, vpy, vpz = geo["vpx"], geo["vpy"], geo["vpz"]
-    mass, fmass_l, fmass_r = ln["mass"], ln["fmass_l"], ln["fmass_r"]
-    iw = ln["iw"]
     we = [e(x) for x in ln["w"]]
-
-    # ---- finger narrow phase ----
     in_dom = ((wx >= k["x0f"]) & (wx <= k["x1f"]) & (wz >= k["z0f"])
               & (wz <= k["z1f"]))
     xc = torch.clamp(wx, k["x0f"], k["x1f"])
@@ -396,6 +412,32 @@ def _full_solve(geo, ln, u_unc, pr: _Pairs, k):
     me_f = 1.0 / (e(ln["inv_m"]) + ang_f + nfy * nfy * inv_fm_pt)
     qd_c0 = torch.where(is_l, e(ln["qdl"]), e(ln["qdr"]))
     vn_f0 = vpx * nfx + (vpy - qd_c0) * nfy + vpz * nfz
+
+    return dict(is_l=is_l, depth_f=depth_f, nfx=nfx, nfy=nfy, nfz=nfz,
+                act_f=act_f, cfx=cfx, cfy=cfy, cfz=cfz, me_f=me_f,
+                vn_f0=vn_f0)
+
+
+def _full_solve(geo, ln, u_unc, pr: _Pairs, k):
+    """Coupled semi-smooth Newton on the 8-DOF soft-constraint energy
+    (pallas3d.py:497-737): u = (vx, vy, vz, ox, oy, oz, qdl, qdr); a fixed
+    ``newton_iters`` iterations, or with ``newton_tol`` > 0 the adaptive
+    loop (pallas3d.py:714-731): the rows iterate while fewer than
+    ``newton_iters`` iterations have run and the step size, the largest
+    |du| over the DOFs and the row's 128 lanes times the row's largest
+    accepted line-search step, exceeds ``newton_tol``. -> (u, iterations
+    taken a row, (G', 1))."""
+    e = lambda x: x[:, None, :]                                 # noqa: E731
+    _rsum = _rsum_of(k)
+    rx, ry, rz = geo["rx"], geo["ry"], geo["rz"]
+    w_np, tgt_pn = geo["w_np"], geo["tgt_p"]
+    mass, fmass_l, fmass_r = ln["mass"], ln["fmass_l"], ln["fmass_r"]
+    iw = ln["iw"]
+    f = _finger_geometry(geo, ln, pr, k)
+    is_l, depth_f, act_f, me_f, vn_f0 = (f[n] for n in (
+        "is_l", "depth_f", "act_f", "me_f", "vn_f0"))
+    nfx, nfy, nfz, cfx, cfy, cfz = (f[n] for n in (
+        "nfx", "nfy", "nfz", "cfx", "cfy", "cfz"))
 
     b_cal, k_cal = pr.pt(15), pr.pt(14)
     tgt_fn = (1.0 - k["d_imp"] * b_cal * k["dt"]) * vn_f0 \
@@ -436,8 +478,7 @@ def _full_solve(geo, ln, u_unc, pr: _Pairs, k):
                 + _hub_sum(_rsum, vnf_, vtf2, w_nf, capf_, tgt_fn)
                 + _hub_sum(_rsum, fz_, vtp2, w_np, capp_, tgt_pn))
 
-    u = list(u_unc)
-    for _it in range(NEWTON_ITERS3):
+    def newton_body(u):
         fx_, fy_, fz_, pvy_ = vrel_of(u)
         vnf = fx_ * nfx + fy_ * nfy + fz_ * nfz
         vtfx = fx_ - vnf * nfx
@@ -538,9 +579,156 @@ def _full_solve(geo, ln, u_unc, pr: _Pairs, k):
         dv = _cholesky_solve(h, grad, 8)
         u1 = [u[a] + dv[a] for a in range(8)]
         u2 = [u[a] + 0.5 * dv[a] for a in range(8)]
-        u = _line_search(u, u1, u2, energy(u, capf, capp),
-                         energy(u1, capf, capp), energy(u2, capf, capp))
-    return u
+        e0, e1, e2 = (energy(v, capf, capp) for v in (u, u1, u2))
+        u_new = _line_search(u, u1, u2, e0, e1, e2)
+        # the step size of the adaptive loop: the largest |du| of the row
+        # times its largest accepted step (0 where the search kept u)
+        best12 = e1 <= e2
+        take_new = torch.where(best12, e1, e2) <= e0
+        alpha = torch.where(take_new, torch.where(best12, 1.0, 0.5), 0.0)
+        step = torch.stack(dv).abs().amax(dim=(0, 2)) * alpha.amax(dim=1)
+        return u_new, step
+
+    u = list(u_unc)
+    n_it = k["newton_iters"]
+    if k["newton_tol"] <= 0.0:
+        for _it in range(n_it):
+            u = newton_body(u)[0]
+        return u, torch.full_like(u[0][:, :1], float(n_it))
+    it = torch.zeros_like(u[0][:, 0])
+    step = torch.full_like(it, 1e9)
+    while True:
+        go = (it < n_it) & (step > k["newton_tol"])             # (G',)
+        if not bool(go.any()):
+            return u, it[:, None]
+        u_new, step_new = newton_body(u)
+        u = [torch.where(go[:, None], a, b) for a, b in zip(u_new, u)]
+        step = torch.where(go, step_new, step)
+        it = it + go.to(torch.float32)
+
+
+def _jacobi_solve(geo, ln, v, pr: _Pairs, k):
+    """Projected Jacobi with the explicit elastic wedge impulse
+    (pallas3d.py:302-433): the finger contact set's elastic impulse under
+    its global energy clamp (a min over the points), plane unloading and
+    the roughness cap, then ``solver_iters`` sweeps over the finger set and
+    then the plane set, each point keeping a normal and a 3-vector
+    tangential impulse per set. v = (vx, vy, vz, ox, oy, oz, qdl, qdr) at
+    the step's start -> the solved velocities."""
+    e = lambda x: x[:, None, :]                                 # noqa: E731
+    _rsum = _rsum_of(k)
+    dt = k["dt"]
+    rx, ry, rz = geo["rx"], geo["ry"], geo["rz"]
+    w_p, me_p, tgt_p = geo["w_p"], geo["me_p"], geo["tgt_p"]
+    inv_m, inv_fml, inv_fmr = ln["inv_m"], ln["inv_fml"], ln["inv_fmr"]
+    mass, w = ln["mass"], ln["w"]
+    ql, qr = ln["ql"], ln["qr"]
+    vx, vy, vz, ox, oy, oz, qdl, qdr = v
+    f = _finger_geometry(geo, ln, pr, k)
+    is_l, depth_f, act_f, me_f, vn_f0 = (f[n] for n in (
+        "is_l", "depth_f", "act_f", "me_f", "vn_f0"))
+    nfx, nfy, nfz = f["nfx"], f["nfy"], f["nfz"]
+    k_cal, b_cal = pr.pt(14), pr.pt(15)
+    mu_finger, mu_plane = pr.lane(13), pr.lane(12)
+    unload, rough = pr.lane(16), pr.pt(17)
+    is_lf = is_l.to(torch.float32)
+    w_f = act_f / torch.clamp(_rsum(act_f)[:, None, :], min=1.0)
+    tgt_f = k["tgt_fj_v"] * vn_f0 + k["tgt_fj_d"] * depth_f
+
+    # explicit elastic wedge with the global energy clamp
+    depth_el = act_f * torch.clamp(depth_f, 0.0, k["depth_el_cap"])
+    v_cap = k["d_imp_dt"] * k_cal * depth_el
+    dv_el = act_f * torch.minimum(
+        torch.clamp(k["d_imp_dt"] * (k_cal * depth_el - b_cal * vn_f0),
+                    min=0.0),
+        torch.clamp(v_cap - vn_f0, min=0.0))
+    imp0 = me_f * dv_el
+    i0x, i0y, i0z = imp0 * nfx, imp0 * nfy, imp0 * nfz
+    dvx_u = _rsum(i0x) * inv_m
+    dvy_u = _rsum(i0y) * inv_m
+    dvz_u = _rsum(i0z) * inv_m
+    tqx_u = _rsum(ry * i0z - rz * i0y)
+    tqy_u = _rsum(rz * i0x - rx * i0z)
+    tqz_u = _rsum(rx * i0y - ry * i0x)
+    dox_u, doy_u, doz_u = _symmul(w, tqx_u, tqy_u, tqz_u)
+    dqdl_u = -_rsum(is_lf * i0y) * inv_fml
+    dqdr_u = -_rsum((1.0 - is_lf) * i0y) * inv_fmr
+    dqd_pt = torch.where(is_l, e(dqdl_u), e(dqdr_u))
+    dvn_ind = ((e(dvx_u) + e(doy_u) * rz - e(doz_u) * ry) * nfx
+               + (e(dvy_u) + e(doz_u) * rx - e(dox_u) * rz - dqd_pt) * nfy
+               + (e(dvz_u) + e(dox_u) * ry - e(doy_u) * rx) * nfz)
+    headroom = torch.clamp(v_cap - vn_f0, min=0.0)
+    take_el = (dv_el > 0) & (dvn_ind > 1e-9)
+    denom = torch.where(take_el, dvn_ind, 1.0)
+    s_el = torch.clamp(torch.where(take_el, headroom / denom,
+                                   float("inf")).amin(dim=1), 0.0, 1.0)
+    imp_el = e(s_el) * imp0
+    grip_ratio = _rsum(imp_el) / (dt * mass * k["gravity"])
+    plane_scale = 1.0 / (1.0 + unload * grip_ratio)
+    rough_cap = rough * me_f * torch.clamp(depth_el, max=k["rough_sat"])
+
+    # unconstrained update (elastic wedge applied)
+    f_l = k["kp"] * (k["ctrl_l"] - ql) - k["damping"] * qdl
+    f_r = k["kp"] * (k["ctrl_r"] - qr) - k["damping"] * qdr
+    vx = vx + s_el * dvx_u
+    vy = vy + s_el * dvy_u
+    vz = vz - k["g_dt"] + s_el * dvz_u
+    ox = ox + s_el * dox_u
+    oy = oy + s_el * doy_u
+    oz = oz + s_el * doz_u
+    qdl = qdl + dt * f_l * inv_fml + s_el * dqdl_u
+    qdr = qdr + dt * f_r * inv_fmr + s_el * dqdr_u
+
+    zero = torch.zeros_like(depth_f)
+    lam = [zero, zero]
+    lam_t = [[zero, zero, zero], [zero, zero, zero]]
+    wme = (w_f * me_f, w_p * me_p)
+    mu_p = e(mu_plane * plane_scale)
+    for _ in range(k["solver_iters"]):
+        for which in (0, 1):
+            vpx = e(vx) + e(oy) * rz - e(oz) * ry
+            vpy = e(vy) + e(oz) * rx - e(ox) * rz
+            vpz = e(vz) + e(ox) * ry - e(oy) * rx
+            if which == 0:
+                nx, ny, nz, tgt = nfx, nfy, nfz, tgt_f
+                vpy = vpy - torch.where(is_l, e(qdl), e(qdr))
+                vn = vpx * nx + vpy * ny + vpz * nz
+            else:
+                # the plane set's normal (0, 0, 1), in the kernel's products
+                nx, ny, nz, tgt = 0.0, 0.0, 1.0, tgt_p
+                vn = vpx * 0.0 + vpy * 0.0 + vpz * 1.0
+            new_n = torch.clamp(lam[which] + wme[which] * (tgt - vn),
+                                min=0.0)
+            dn = new_n - lam[which]
+            lam[which] = new_n
+            lt = lam_t[which]
+            ctx = lt[0] - wme[which] * (vpx - vn * nx)
+            cty = lt[1] - wme[which] * (vpy - vn * ny)
+            ctz = lt[2] - wme[which] * (vpz - vn * nz)
+            if which == 0:
+                cap = e(mu_finger) * (new_n + imp_el) + rough_cap
+            else:
+                cap = mu_p * new_n
+            nrm = torch.sqrt(ctx * ctx + cty * cty + ctz * ctz + 1e-20)
+            sc = torch.clamp(cap / nrm, max=1.0)
+            ctx, cty, ctz = ctx * sc, cty * sc, ctz * sc
+            dtx, dty, dtz = ctx - lt[0], cty - lt[1], ctz - lt[2]
+            lam_t[which] = [ctx, cty, ctz]
+            ix = dn * nx + dtx
+            iy = dn * ny + dty
+            iz = dn * nz + dtz
+            vx = vx + _rsum(ix) * inv_m
+            vy = vy + _rsum(iy) * inv_m
+            vz = vz + _rsum(iz) * inv_m
+            tqx = _rsum(ry * iz - rz * iy)
+            tqy = _rsum(rz * ix - rx * iz)
+            tqz = _rsum(rx * iy - ry * ix)
+            dox, doy, doz = _symmul(w, tqx, tqy, tqz)
+            ox, oy, oz = ox + dox, oy + doy, oz + doz
+            if which == 0:
+                qdl = qdl - _rsum(is_lf * iy) * inv_fml
+                qdr = qdr - _rsum((1.0 - is_lf) * iy) * inv_fmr
+    return vx, vy, vz, ox, oy, oz, qdl, qdr
 
 
 def _cheap_solve(geo, ln, u_unc, pr: _Pairs, k):
@@ -625,7 +813,7 @@ def _cheap_solve(geo, ln, u_unc, pr: _Pairs, k):
         u2 = [u[a] + 0.5 * dv[a] for a in range(6)] + u[6:]
         u = _line_search(u, u1, u2, e_cheap(u, capp), e_cheap(u1, capp),
                          e_cheap(u2, capp))
-    return u
+    return u, torch.zeros_like(u[0][:, :1])
 
 
 def profile_batch_ref(
@@ -637,13 +825,29 @@ def profile_batch_ref(
     regrasp_every: int = 0,
     snapshot_step: int = 0,
     sum_group: int = 0,
+    solver: Optional[str] = None,
+    newton_iters: Optional[int] = None,
+    newton_tol: float = 0.0,
 ) -> Tuple[torch.Tensor, ...]:
     """Returns the 12 raw (B, N) float32 outputs of the kernel (OUT_NAMES):
     final qw, qz, origin dx, dy; validity (1.0 / 0.0); snapshot qw, qz, dx,
-    dy; per-block full-solve, cheap-solve and Newton-iteration counts.
+    dy; per-block full-solve, cheap-solve and iteration counts (Newton: the
+    full-solve iterations taken; Jacobi: ``SOLVER_ITERS`` a full step).
     ``sum_group`` = G adds the point sums in the order of the CUDA kernel
-    with G threads a rollout (0: ``torch.sum``'s own; ``point_sum``)."""
-    k = dict(constants(), sum_group=sum_group)
+    with G threads a rollout (0: ``torch.sum``'s own; ``point_sum``).
+    ``solver``: None reads ``engine3d.SOLVER3`` now ("pyramid" runs the
+    Newton branch, as the Pallas kernel does); ``newton_iters``: None reads
+    ``rollout3d.NEWTON_KERNEL_ITERS3``; ``newton_tol`` > 0 makes the Newton
+    solve adaptive (at most ``newton_iters`` iterations)."""
+    from dgdm_tpu_torch.sim import rollout3d
+
+    solver = engine3d.resolve_solver3(solver)
+    if newton_iters is None:
+        newton_iters = rollout3d.NEWTON_KERNEL_ITERS3
+    k = dict(constants(), sum_group=sum_group,
+             solver="jacobi" if solver == "jacobi" else "newton",
+             newton_iters=int(newton_iters), newton_tol=float(newton_tol),
+             solver_iters=engine3d.SOLVER_ITERS)
     dt = k["dt"]
     b = points.shape[0]
     n = poses.shape[0]

@@ -1,28 +1,34 @@
 """Scene and state containers — port of ``dgdm_tpu/sim/types.py``
-(``Scene2D``, ``State2D``, ``Scene3D``).
+(``Scene2D``, ``State2D``, ``Scene3D``, ``State3D``).
 
 One scene holds everything static about an object x gripper pair as dense
 tensors; a batch of pairs is the same dataclass with a leading dimension
 (``datagen.stack_scenes``). A plain dataclass of tensors takes the place of
-the JAX package's ``flax.struct`` pytree; ``State2D`` likewise carries any
-leading batch shape (pairs x poses in the pure 2D engine) in front of the
-per-rollout shapes noted beside its fields. ``Scene3D`` holds the fields that
-the 3D rollout kernel's inputs read; the JAX scene's baked height grid
-(``hgrid``, read only by the pure-JAX ``engine3d.step*``) and its unused
-``bottom_pts`` wait for the port of that engine.
+the JAX package's ``flax.struct`` pytree; ``State2D`` and ``State3D``
+likewise carry any leading batch shape (pairs x poses in the pure engines)
+in front of the per-rollout shapes noted beside their fields.
+
+``Scene3D.hgrid`` is the fingers' baked height grid, which only the pure 3D
+engine reads: ``engine3d.make_scene`` leaves it ``None`` (the rollout
+kernel's paths never pay for the bake) and the pure engine's entry points
+fill it from a per-gripper LRU on first use (``engine3d.with_hgrid``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 
 def to_device(obj, device):
-    """A scene or state dataclass with every tensor moved to ``device``."""
-    return type(obj)(**{f.name: getattr(obj, f.name).to(device)
-                        for f in dataclasses.fields(obj)})
+    """A scene or state dataclass with every tensor moved to ``device``
+    (fields that are None stay None)."""
+    return type(obj)(**{
+        f.name: None if getattr(obj, f.name) is None
+        else getattr(obj, f.name).to(device)
+        for f in dataclasses.fields(obj)})
 
 
 @dataclasses.dataclass
@@ -67,5 +73,22 @@ class Scene3D:
     mass: torch.Tensor          # () object mass (incl. MuJoCo double-count)
     inertia: torch.Tensor       # (3, 3) inertia about the COM
     inv_inertia: torch.Tensor   # (3, 3)
+    bottom_pts: torch.Tensor    # (S, 3) base support points (unused: the
+                                # plane contact uses all surface points)
     bottom_w: torch.Tensor      # (P,) footprint-corner plane support weights
     finger_mass: torch.Tensor   # (2,) per-jaw mass (left, right)
+    hgrid: Optional[torch.Tensor] = None
+                                # (2, H, W, 3): [height, dh/dx, dh/dz] per
+                                # finger on the (x, z) lattice, or None
+
+
+@dataclasses.dataclass
+class State3D:
+    """State of one 3D rollout (fields carry a leading batch shape)."""
+
+    pos: torch.Tensor           # (3,) COM position, world frame
+    quat: torch.Tensor          # (4,) body -> world rotation (w, x, y, z)
+    vel: torch.Tensor           # (3,) COM velocity
+    om: torch.Tensor            # (3,) angular velocity, world frame
+    q: torch.Tensor             # (2,) finger slide positions (left, right)
+    qd: torch.Tensor            # (2,) finger velocities

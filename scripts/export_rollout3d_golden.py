@@ -16,7 +16,15 @@ arrays, the poses and all 12 kernel outputs of each schedule. The port's
 tests hold the plain PyTorch version to it on the CPU, and ``chip_smoke.py``
 holds the CUDA kernel to it on the card, which needs no JAX.
 
-    JAX_PLATFORMS=cpu python scripts/export_rollout3d_golden.py
+``--solver jacobi`` runs the kernel's Jacobi branch with
+``engine3d.SOLVER3 = "jacobi"`` (so the scene arrays carry the Jacobi
+calibration) into ``rollout3d_jacobi_golden.npz``; ``--newton_tol`` > 0
+(with ``--newton_iters``) its adaptive Newton loop into
+``rollout3d_newton_tol_golden.npz``. Each file records its solver and
+Newton settings.
+
+    JAX_PLATFORMS=cpu python scripts/export_rollout3d_golden.py \
+        [--solver jacobi | --newton_iters 6 --newton_tol 1e-4]
 """
 
 from __future__ import annotations
@@ -61,9 +69,12 @@ def golden_inputs(grippers=(0, 1), n: int = 128):
     return arrs, poses
 
 
-def run_pallas_interpret(arrs, poses, steps, regrasp_every, snapshot_step):
+def run_pallas_interpret(arrs, poses, steps, regrasp_every, snapshot_step,
+                         newton_iters=pallas3d.NEWTON_KERNEL_ITERS3,
+                         newton_tol=0.0):
     """All 12 raw kernel outputs, (B, N) each, from the interpreted TPU
-    kernel (Newton solver, as profile_batch_pallas3d resolves it)."""
+    kernel (the solver of engine3d.SOLVER3, as profile_batch_pallas3d
+    resolves it)."""
     orig = pl.pallas_call
     raw = {}
 
@@ -81,7 +92,8 @@ def run_pallas_interpret(arrs, poses, steps, regrasp_every, snapshot_step):
         # outputs (before its readout) can be returned
         pallas3d._profile_batch_pallas3d.__wrapped__(
             *a, steps=steps, regrasp_every=regrasp_every,
-            snapshot_step=snapshot_step, solver=engine3d.SOLVER3)
+            snapshot_step=snapshot_step, solver=engine3d.SOLVER3,
+            newton_iters=newton_iters, newton_tol=newton_tol)
         return raw["outs"]
 
     with mock.patch.object(pallas3d.pl, "pallas_call", interp):
@@ -92,19 +104,37 @@ def run_pallas_interpret(arrs, poses, steps, regrasp_every, snapshot_step):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=os.path.join(
-        ROOT, "tests", "fixtures", "rollout3d_golden.npz"))
+    ap.add_argument("--solver", default="newton", choices=["newton", "jacobi"])
+    ap.add_argument("--newton_iters", type=int,
+                    default=pallas3d.NEWTON_KERNEL_ITERS3)
+    ap.add_argument("--newton_tol", type=float, default=0.0)
+    ap.add_argument("--out", default=None, help="default: tests/fixtures/"
+                    "rollout3d_golden.npz, rollout3d_jacobi_golden.npz with "
+                    "--solver jacobi, rollout3d_newton_tol_golden.npz with "
+                    "--newton_tol > 0")
     args = ap.parse_args(argv)
+    if args.out is None:
+        name = ("rollout3d_jacobi_golden.npz" if args.solver == "jacobi"
+                else "rollout3d_newton_tol_golden.npz" if args.newton_tol > 0
+                else "rollout3d_golden.npz")
+        args.out = os.path.join(ROOT, "tests", "fixtures", name)
+    engine3d.SOLVER3 = args.solver
     arrs, poses = golden_inputs()
     data = dict(zip(("coefs", "points", "scalars"), arrs))
     data["poses"] = poses
     for name, steps, rg, snap in SCHEDULES:
         data[f"{name}_schedule"] = np.asarray([steps, rg, snap], np.int64)
-        outs = run_pallas_interpret(arrs, poses, steps, rg, snap)
+        outs = run_pallas_interpret(arrs, poses, steps, rg, snap,
+                                    args.newton_iters, args.newton_tol)
         for k, v in zip(OUT_NAMES, outs):
             data[f"{name}_{k}"] = v.astype(np.float32)
         print(f"{name}: full/cheap steps per block {outs[9][:, 0]} / "
-              f"{outs[10][:, 0]}, valid {outs[4].mean():.3f}", flush=True)
+              f"{outs[10][:, 0]}, iterations per block {outs[11][:, 0]}, "
+              f"valid {outs[4].mean():.3f}", flush=True)
+    if args.solver != "newton" or args.newton_tol > 0:
+        data["solver"] = np.asarray(args.solver)
+        data["newton_iters"] = np.asarray(args.newton_iters, np.int64)
+        data["newton_tol"] = np.asarray(args.newton_tol, np.float64)
     np.savez_compressed(args.out, **data)
     print("wrote", args.out)
 

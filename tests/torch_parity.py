@@ -10,7 +10,20 @@ import torch
 # With torch's default of one intra-op thread per core in each, the plain
 # rollouts' many small ops wait on descheduled threads and run over ten
 # times slower; one thread per process keeps them bound by compute alone.
+# The OpenBLAS pools of numpy and scipy spin between calls in the same way
+# and take the cores from the other processes (the 3D engine tests ran three
+# times slower beside one other process): one thread each too, for the
+# libraries loaded later by the environment variable, for those loaded now
+# by threadpoolctl where it is installed.
 torch.set_num_threads(1)
+os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
+try:
+    import scipy.linalg  # noqa: F401  (loads scipy's own OpenBLAS)
+    from threadpoolctl import threadpool_limits
+except ImportError:
+    pass
+else:
+    threadpool_limits(limits=1, user_api="blas")
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures",
                       "rollout2d_golden.npz")
