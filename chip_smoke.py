@@ -122,7 +122,31 @@ Phases, each printing its own lines:
     against K2's snapshot, ``rollout_trace3d``, each solver's cost a step
     (ms, kernels, busy share from ``torch.profiler``) and one step card vs
     CPU within 1e-5;
-12. times and the summary.
+12. the multi-GPU layer (``dgdm_tpu_torch/parallel/``) and the flagship
+    entry point: (a) ``graft_entry.entry()``, one guided-denoise step at the
+    flagship shape (B 16, the 9,000-pose classifier gradient, UNet (128,
+    256), classifier width 256, float32, TF32 off), ms a step over 20 calls
+    with CUDA events, its output against the same step and weights on the
+    CPU within 1e-5; (b) two ranks on cuda:0 over gloo (NCCL refuses two
+    ranks on one device), started by ``parallel/launch.py``, each calling
+    the CLIs' normal ``main(argv)``: ``cli.datagen`` (synthetic icons 0-1 x
+    grippers 0-15 x the 9,000-pose grid x 200 steps, 8 pairs a rank a wave;
+    the shards, written once by rank 0, bitwise the one-rank run's),
+    ``cli.train_dynamics`` (full width, float32, 4 steps of 4 pairs) and
+    ``cli.train_diffusion`` (UNet (128, 256), batch 2,048, 4 steps), both
+    within the bars of tests/test_multichip.py of the one-rank run (losses
+    2e-4 relative, parameters 5e-4; the diffusion's EMA),
+    ``cli.sample`` on their checkpoints (grid 360 x 5 x 5 on sp = 2, B 16, 5
+    DDIM steps, shift_up, 8,000-step verification split over both ranks;
+    samples within 1e-5 of one rank on the same checkpoints), and
+    ``sim_eval_batch_2d`` (16 x 360 x 8,000) and ``sim_eval_batch_3d`` (16 x
+    mug_small x 45 x 2,400) on fixed samples, every metric bitwise the
+    one-rank call's and K1 and K2 launched once by each rank; the
+    one-rank references run in this process meanwhile; (c) a one-rank
+    NCCL group: one all-reduce and one step of a DDP-wrapped
+    ``DynamicsTrainer``. A rank that fails to start, launch or agree fails
+    the phase;
+13. times and the summary.
 
 Each kernel has one thread layout (K1 16 threads a rollout, K2 32; a
 128-pose group is a cluster of 8 blocks) and holds each thread's per-point
@@ -1657,6 +1681,366 @@ def phase_train_path(dev, k2_wave_ms: float) -> dict:
     return out
 
 
+# ---- 12. multi-GPU: the flagship step, two ranks on one card, NCCL --------
+
+P12_STEPS = 4
+P12_SAMPLE_ARGS = ["--batch_size", "16", "--grid_size", "360", "--num_pos",
+                   "5", "--num_inference_steps", "5", "--num_test_objects",
+                   "1", "--objectives", "shift_up", "--device", "cuda"]
+
+
+def p12_fixed_samples():
+    """The fixed normalized samples that 12 (b)'s verification calls
+    evaluate: 16 2D grippers and 16 3D ones from seed 12."""
+    rs = np.random.RandomState(12)
+    return (rs.uniform(-0.5, 0.5, (16, 14)).astype(np.float32),
+            rs.uniform(-0.5, 0.5, (16, 42)).astype(np.float32))
+
+
+def p12_steps(tmp: str, out: dict, with_sample: bool) -> None:
+    """12 (b)'s calls in order, in ``tmp``: the datagen CLI, both training
+    CLIs, (``with_sample``) the sample CLI on the trainers' checkpoints,
+    and the verification calls on fixed samples; the launches and seconds
+    of each into ``out``. Ranks and the one-rank reference run the same
+    code. Grippers 8-15 of both icons become the validation set, 0-7 of
+    both the training set, so that the objects of a batch differ: with one
+    object for all rows, the object encoder's gradient is rounding noise
+    (see tests/test_torch_training.null_biases) and Adam turns it into
+    steps of the learning rate in random directions on each process."""
+    import torch
+    import torch.distributed as dist
+
+    from dgdm_tpu_torch.cli import datagen as datagen_cli
+    from dgdm_tpu_torch.cli import sample as sample_cli
+    from dgdm_tpu_torch.cli import train_diffusion, train_dynamics
+    from dgdm_tpu_torch.eval.simeval import sim_eval_batch_2d
+    from dgdm_tpu_torch.eval.simeval3d import sim_eval_batch_3d
+    from dgdm_tpu_torch.geom import mesh3d
+    from dgdm_tpu_torch.geom.contour import extract_contours, synthetic_icon
+    from dgdm_tpu_torch.parallel.distributed import rank
+    from dgdm_tpu_torch.sim import rollout2d, rollout3d
+
+    def path(*a):
+        return os.path.join(tmp, *a)
+
+    def step(name, fn):
+        before = (rollout2d.KERNEL_LAUNCHES["rollout2d"],
+                  rollout3d.KERNEL_LAUNCHES["rollout3d"])
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out.setdefault("seconds", {})[name] = time.perf_counter() - t0
+        out.setdefault("launches", {})[name] = {
+            "rollout2d": rollout2d.KERNEL_LAUNCHES["rollout2d"] - before[0],
+            "rollout3d": rollout3d.KERNEL_LAUNCHES["rollout3d"] - before[1]}
+        return res
+
+    for k in rollout2d.KERNEL_LAUNCHES:
+        rollout2d.KERNEL_LAUNCHES[k] = 0
+    for k in rollout3d.KERNEL_LAUNCHES:
+        rollout3d.KERNEL_LAUNCHES[k] = 0
+    out["datagen"] = step("datagen", lambda: datagen_cli.main([
+        "--num_objects", "2", "--num_fingers", "16", "--pairs_per_batch",
+        "16", "--save_dir", path("data"), "--device", "cuda"]))
+    if rank() == 0:
+        os.makedirs(path("val"))
+        for name in os.listdir(path("data")):
+            if int(name.split("_")[1].split(".")[0]) >= 8:
+                os.replace(path("data", name), path("val", name))
+    if dist.is_initialized():
+        dist.barrier()
+    # float32 (the CLIs' TF32 products), full width, 4 steps of 4 pairs
+    out["dynamics"] = step("train_dynamics", lambda: train_dynamics.main([
+        "--data_dir", path("data"), "--test_data_dir", path("val"),
+        "--save_dir", path("dyn"), "--batch_size", "4", "--num_epochs", "1",
+        "--no_bf16", "--device", "cuda"]))
+    out["diffusion"] = step("train_diffusion", lambda: train_diffusion.main([
+        "--num_fingers", "10240", "--batch_size", "2048", "--num_epochs",
+        "1", "--save_dir", path("diff"), "--device", "cuda"]))
+    if with_sample:
+        out["sample"] = step("sample", lambda: sample_cli.main([
+            "--diffusion_checkpoint_path", path("diff", "ckpt", "last"),
+            "--checkpoint_path", path("dyn", "ckpt", "last"),
+            "--save_dir", path("guided")] + P12_SAMPLE_ARGS))
+    s2, s3 = p12_fixed_samples()
+    contour = extract_contours(synthetic_icon(0))
+    out["eval2d"] = step("sim_eval_batch_2d", lambda: sim_eval_batch_2d(
+        s2, [contour], num_rot=360, device="cuda"))
+    mug = mesh3d.load_obj(MUG)
+    out["eval3d"] = step("sim_eval_batch_3d", lambda: sim_eval_batch_3d(
+        s3, [mug], num_rot=45, total_steps=2400, regrasp_every=800,
+        device="cuda"))
+    out["total_launches"] = {
+        "rollout2d": rollout2d.KERNEL_LAUNCHES["rollout2d"],
+        "rollout3d": rollout3d.KERNEL_LAUNCHES["rollout3d"]}
+
+
+def phase12_rank(tmp: str) -> dict:
+    """One of 12 (b)'s ranks (started by ``dgdm_tpu_torch.parallel.launch``
+    with gloo, both on cuda:0): the CLIs' normal ``main(argv)`` in the
+    shared directory ``tmp``."""
+    import torch
+
+    from dgdm_tpu_torch.parallel.distributed import rank, world_size
+
+    out = {"rank": rank(), "world": world_size(),
+           "device": str(torch.cuda.current_device())}
+    p12_steps(tmp, out, with_sample=True)
+    return out
+
+
+def phase12_nccl() -> dict:
+    """12 (c): a one-rank NCCL group on the card: one all-reduce and one
+    step of a DDP-wrapped DynamicsTrainer, beside the same step without a
+    group."""
+    import torch
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from dgdm_tpu_torch.models.profile2d import ProfileForward2D
+    from dgdm_tpu_torch.parallel.mesh import data_parallel_mesh
+    from dgdm_tpu_torch.train.dynamics import DynamicsTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = dist.get_backend()
+    t = torch.full((4,), 3.0, device="cuda")
+    dist.all_reduce(t)
+    rs = np.random.RandomState(0)
+    rows = 4096
+    batch = {"ctrl": rs.uniform(-1, 1, (rows, 14)),
+             "ori": rs.uniform(-1, 1, (rows, 1)),
+             "pos": rs.uniform(-1, 1, (rows, 2)),
+             "obj": rs.uniform(-1, 1, (rows, 200)),
+             "score": rs.randn(rows, 3)}
+    losses = {}
+    for name, mesh in (("ddp", data_parallel_mesh(min_devices=1)),
+                       ("plain", None)):
+        torch.manual_seed(0)
+        tr = DynamicsTrainer(ProfileForward2D(), device="cuda", mesh=mesh)
+        if name == "ddp":
+            wrapped = isinstance(tr.net, DistributedDataParallel)
+        losses[name] = float(tr.train_step(batch)["loss"])
+    return {"backend": backend, "all_reduce": t.cpu().tolist(),
+            "ddp": wrapped, "losses": losses}
+
+
+def p12_state(path: str, key: str) -> dict:
+    import torch
+
+    st = torch.load(os.path.join(path, "train_state.pt"), map_location="cpu",
+                    weights_only=True)
+    return {k: v.numpy() for k, v in st[key].items()}
+
+
+BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def p12_close(a: dict, b: dict, atol: float, what: str) -> dict:
+    """Parameters within ``atol``, the bar of tests/test_multichip.py, which
+    holds the parameters and not the BatchNorm statistics -> max |diff| of
+    the parameters and of the running statistics, and the three
+    parameters that differ most. Adam moves an element by about the
+    learning rate a step whatever its gradient, so where the gradient is
+    rounding noise (the biases before a BatchNorm; the object encoder,
+    whose gradients from a batch's two objects cancel under the BatchNorm
+    after it) two correct runs drift apart at that scale: the losses and
+    the bitwise checks are the sharper ones."""
+    err = {"params": 0.0, "stats": 0.0}
+    per = {}
+    for k, v in b.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        d = float(np.abs(a[k] - v).max())
+        kind = "stats" if k.endswith(BUFFERS) else "params"
+        err[kind] = max(err[kind], d)
+        if kind == "params":
+            per[k] = d
+    err["top"] = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    check(err["params"] <= atol, f"{what}: max |diff| "
+          f"{err['params']:.3g} > {atol} ({err['top']})")
+    return err
+
+
+def p12_rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_multi_gpu(dev, card: str) -> dict:
+    """Phase 12: (a) graft_entry.entry() at the flagship shape, (b) two
+    ranks on cuda:0 over gloo through the CLIs, each step held against the
+    same call in this process, (c) a one-rank NCCL group."""
+    import torch
+
+    from dgdm_tpu_torch import graft_entry
+    from dgdm_tpu_torch.parallel import launch
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    # ---- (a) the flagship guided-denoise step, the card to itself -------
+    fn, (x, obj) = graft_entry.entry(device="cuda")
+    ms, y = timed_cuda(lambda: fn(x, obj), reps=20)
+    cfn, (cx, cobj) = graft_entry.entry(device="cpu")
+    t0 = time.perf_counter()
+    cy = cfn(cx, cobj)
+    cpu_s = time.perf_counter() - t0
+    err = float((y.cpu() - cy).abs().max())
+    moved = float((y - x).abs().max())
+    check(torch.isfinite(y).all() and tuple(y.shape) == (16, 14, 1),
+          "entry(): finite (16, 14, 1) output")
+    check(moved > 1e-3, f"entry(): the step moved x by {moved}")
+    check(err <= 1e-5, f"entry() card vs CPU max |diff| {err:.3g}")
+    out["entry"] = {"ms": ms, "steps_per_s": 1e3 / ms,
+                    "cpu_vs_card_max_abs_err": err, "cpu_s": cpu_s}
+    print(f"12 (a) graft_entry.entry(): guided-denoise step at the "
+          f"flagship shape (B 16, 9,000 poses, UNet (128, 256), "
+          f"classifier width 256, float32, TF32 off) {ms:.2f} "
+          f"ms/step, {1e3 / ms:.2f} steps/s (CUDA events, 20 calls "
+          f"after a warm-up) on {card}; card vs CPU max |diff| "
+          f"{err:.2e} (CPU {cpu_s:.1f}s)", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp2, \
+            tempfile.TemporaryDirectory() as tmp1:
+        # ---- (b) the ranks, and the one-rank references meanwhile in this
+        # process (they share the card: no rank's seconds are a scaling
+        # figure)
+        ranks = launch.start(2, "chip_smoke:phase12_rank", {"tmp": tmp2},
+                             backend="gloo", threads=2, timeout=600)
+        try:
+            ref: dict = {}
+            p12_steps(tmp1, ref, with_sample=False)
+            outs = ranks.wait()
+        except BaseException:
+            ranks.stop()
+            raise
+        ranks_s = time.perf_counter() - ranks.t0
+        # the sample CLI on the ranks' checkpoints, one rank
+        t0 = time.perf_counter()
+        from dgdm_tpu_torch.cli import sample as sample_cli
+
+        ref_sample = sample_cli.main([
+            "--diffusion_checkpoint_path", os.path.join(tmp2, "diff", "ckpt",
+                                                        "last"),
+            "--checkpoint_path", os.path.join(tmp2, "dyn", "ckpt", "last"),
+            "--save_dir", os.path.join(tmp1, "guided")] + P12_SAMPLE_ARGS)
+        ref["seconds"]["sample"] = time.perf_counter() - t0
+        check([o["world"] for o in outs] == [2, 2] and
+              {o["device"] for o in outs} == {"0"},
+              f"two ranks on cuda:0: {[(o['world'], o['device']) for o in outs]}")
+        # datagen: the shards, written once by rank 0, bitwise the
+        # one-rank run's
+        names = {d: sorted(os.listdir(os.path.join(tmp2, d)))
+                 for d in ("data", "val")}
+        for d in ("data", "val"):
+            check(names[d] == sorted(os.listdir(os.path.join(tmp1, d)))
+                  and len(names[d]) == 16, f"12 (b) {d} shards {names[d]}")
+            for name in names[d]:
+                a = np.load(os.path.join(tmp2, d, name),
+                            allow_pickle=True)["arr_0"].item()
+                b = np.load(os.path.join(tmp1, d, name),
+                            allow_pickle=True)["arr_0"].item()
+                for k in b:
+                    check(np.array_equal(a[k], b[k]),
+                          f"12 (b) shard {d}/{name}: {k} differs")
+        # trainers: every rank the same losses; within the bars of
+        # tests/test_multichip.py of the one-rank run
+        for o in outs[1:]:
+            check(o["dynamics"]["last_loss"] == outs[0]["dynamics"]
+                  ["last_loss"] and o["diffusion"]["last_loss"] ==
+                  outs[0]["diffusion"]["last_loss"], "ranks' losses differ")
+        o = outs[0]
+        check(o["dynamics"]["steps"] == ref["dynamics"]["steps"] == P12_STEPS
+              and o["diffusion"]["steps"] == ref["diffusion"]["steps"]
+              == P12_STEPS, f"{P12_STEPS} steps of each trainer")
+        loss_rel = max(p12_rel(o[m][k], ref[m][k])
+                       for m in ("dynamics", "diffusion")
+                       for k in ("first_loss", "last_loss"))
+        check(loss_rel <= 2e-4, f"12 (b) losses 2 ranks vs 1: {loss_rel:.3g}")
+        dyn = p12_close(
+            p12_state(os.path.join(tmp2, "dyn", "ckpt", "last"), "model"),
+            p12_state(os.path.join(tmp1, "dyn", "ckpt", "last"), "model"),
+            5e-4, "12 (b) dynamics parameters")
+        ema = p12_close(
+            p12_state(os.path.join(tmp2, "diff", "ckpt", "last"), "ema"),
+            p12_state(os.path.join(tmp1, "diff", "ckpt", "last"), "ema"),
+            5e-4, "12 (b) diffusion EMA parameters")
+        # the sp-sharded design loop against one rank on the same
+        # checkpoints
+        sample_err = 0.0
+        files = sorted(f for f in os.listdir(os.path.join(tmp1, "guided"))
+                       if f.endswith(".npy"))
+        check(files == sorted(f for f in os.listdir(
+            os.path.join(tmp2, "guided")) if f.endswith(".npy"))
+            and len(files) == 2, f"12 (b) sample files {files}")
+        for f in files:
+            a = np.load(os.path.join(tmp2, "guided", f))
+            b = np.load(os.path.join(tmp1, "guided", f))
+            check(a.shape == (16, 14, 1) and np.isfinite(a).all(), f)
+            sample_err = max(sample_err, float(np.abs(a - b).max()))
+        check(sample_err <= 1e-5, f"12 (b) samples, sp = 2 vs one rank: "
+              f"max |diff| {sample_err:.3g}")
+        # verification on fixed samples: every metric bitwise
+        for k in ("eval2d", "eval3d"):
+            for oo in outs:
+                check(len(oo[k]) == len(ref[k]) == 16, k)
+                for ma, mb in zip(oo[k], ref[k]):
+                    for m in mb:
+                        check(np.array_equal(ma[m], mb[m]),
+                              f"12 (b) {k} rank {oo['rank']}: {m} differs")
+        for oo in outs:
+            la = oo["launches"]
+            check(la["sim_eval_batch_2d"] == {"rollout2d": 1, "rollout3d": 0}
+                  and la["sim_eval_batch_3d"] == {"rollout2d": 0,
+                                                  "rollout3d": 1}
+                  and la["datagen"]["rollout2d"] == 2,
+                  f"12 (b) rank {oo['rank']} launches {la}")
+            print(f"12 (b) rank {oo['rank']}/2 on cuda:{oo['device']} "
+                  f"(gloo): launches " + ", ".join(
+                      f"{s} K1 {v['rollout2d']} K2 {v['rollout3d']}"
+                      for s, v in la.items()) + "; seconds " + ", ".join(
+                      f"{s} {v:.2f}" for s, v in oo["seconds"].items()),
+                  flush=True)
+        print(f"12 (b) one rank (this process): seconds " + ", ".join(
+            f"{s} {v:.2f}" for s, v in ref["seconds"].items()), flush=True)
+        print(f"12 (b) 2 ranks vs 1: datagen shards bitwise ({len(names['data'])}"
+              f" + {len(names['val'])}); losses max rel {loss_rel:.2e}; "
+              f"dynamics parameters max |diff| {dyn['params']:.2e} (most: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in dyn["top"]) +
+              f"; BatchNorm running statistics {dyn['stats']:.2e}), "
+              f"diffusion EMA "
+              f"{ema['params']:.2e}; samples (sp = 2) max |diff| {sample_err:.2e}; "
+              f"verification metrics bitwise (2D 16 x 360 x 8,000, 3D 16 x "
+              f"45 x 2,400); ranks {ranks_s:.1f}s from start", flush=True)
+        out["ranks"] = [{k: oo[k] for k in ("rank", "seconds", "launches",
+                                             "total_launches")}
+                        for oo in outs]
+        out["reference_seconds"] = ref["seconds"]
+        out["ref_sample_s"] = ref["seconds"]["sample"]
+        out.update(loss_rel=loss_rel, dynamics_err=dyn, ema_err=ema,
+                   sample_err=sample_err, ranks_s=ranks_s,
+                   design_sweep=ref_sample.get("design_sweep"))
+
+    # ---- (c) a one-rank NCCL group ----------------------------------------
+    t0 = time.perf_counter()
+    (nc,) = launch.run(1, "chip_smoke:phase12_nccl", backend="nccl",
+                       threads=2, timeout=300)
+    nccl_s = time.perf_counter() - t0
+    check(nc["backend"] == "nccl" and nc["all_reduce"] == [3.0] * 4 and
+          nc["ddp"], f"12 (c) NCCL group: {nc}")
+    nrel = p12_rel(nc["losses"]["ddp"], nc["losses"]["plain"])
+    check(np.isfinite(nc["losses"]["ddp"]) and nrel <= 1e-5,
+          f"12 (c) DDP step loss {nc['losses']} (relative {nrel:.3g})")
+    print(f"12 (c) one-rank NCCL group: all_reduce {nc['all_reduce']}, a "
+          f"DDP-wrapped DynamicsTrainer step (width 256, 4,096 rows) loss "
+          f"{nc['losses']['ddp']:.6f} vs {nc['losses']['plain']:.6f} without "
+          f"a group (relative {nrel:.2e}); {nccl_s:.1f}s with the process "
+          f"start. One card runs no NCCL group of two ranks (NCCL refuses "
+          f"two ranks on one device) and shows no scaling", flush=True)
+    out["nccl"] = {**nc, "seconds": nccl_s, "loss_rel": nrel}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1954,7 +2338,11 @@ def main() -> int:
     s3 = phase_3d_solvers(dev)
     clock.done("11")
 
-    # ---- 12. summary ------------------------------------------------------
+    # ---- 12. multi-GPU: entry(), two ranks on one card, NCCL --------------
+    multi = phase_multi_gpu(dev, card)
+    clock.done("12")
+
+    # ---- 13. summary ------------------------------------------------------
     summary = {
         "card": card, "build_s": build_s, "registers": registers,
         "travel_k1": k1_travel,
@@ -1975,7 +2363,7 @@ def main() -> int:
         "design_call": {"seconds": call_s, "kernel_ms": call_k_ms,
                         "full_steps_per_block": call_full},
         "k2": k2, "train_path": train, "jacobi": jac, "solvers_3d": s3,
-        "phase_s": clock.seconds,
+        "multi_gpu": multi, "phase_s": clock.seconds,
         "seconds": time.perf_counter() - t_start,
     }
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
@@ -1999,6 +2387,8 @@ def main() -> int:
         "datagen_cli_launches": train["dg_launches"]["rollout2d"],
         "train_path_launches": train["launches"]["rollout2d"],
         "datagen_cli_wave_ms": train["k1_wave_ms"],
+        "multi_gpu_rank_launches": [r["total_launches"]["rollout2d"]
+                                    for r in multi["ranks"]],
     }, {
         "name": "rollout3d", "route": "cuda",
         "source": "dgdm_tpu_torch/csrc/rollout3d.cu",
@@ -2024,6 +2414,8 @@ def main() -> int:
         "datagen_bound_ms": k2["datagen"]["bound_ms"],
         "datagen_cli_launches": train["dg_launches"]["rollout3d"],
         "train_path_launches": train["launches"]["rollout3d"],
+        "multi_gpu_rank_launches": [r["total_launches"]["rollout3d"]
+                                    for r in multi["ranks"]],
     }, {
         "name": "rollout2d_jacobi", "route": "cuda",
         "source": "dgdm_tpu_torch/csrc/rollout2d.cu",

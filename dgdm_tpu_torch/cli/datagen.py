@@ -9,6 +9,11 @@ bake of the next object's wave and the previous wave's npz writes run while
 the current wave's kernel does, with the same npz output as
 ``sim.datagen.generate_2d``. ``main`` returns the summed pipeline summary.
 
+Over N GPUs, start N processes with the environment contract of
+``parallel/distributed.py``: each wave's pairs split over the ranks when
+``--pairs_per_batch`` divides by N (``sim/datagen.py``), and rank 0 writes
+the shards.
+
 Example (reference: 1000 objects x 1000 grippers):
     python -m dgdm_tpu_torch.cli.datagen --object_dir Icons-50.npy \\
         --num_objects 1000 --num_fingers 1000 --save_dir data/sim2d
@@ -20,6 +25,10 @@ import time
 
 from dgdm_tpu_torch.core.flags import build_parser
 from dgdm_tpu_torch.geom.contour import extract_contours, load_icon, synthetic_icon
+from dgdm_tpu_torch.parallel.distributed import (
+    maybe_initialize_distributed,
+    rank,
+)
 from dgdm_tpu_torch.sim.pipeline import pipeline_2d
 
 
@@ -37,6 +46,8 @@ def main(argv=None):
     p.add_argument("--object_start", type=int, default=0)
     p.add_argument("--gripper_start", type=int, default=0)
     args = p.parse_args(argv)
+    maybe_initialize_distributed()
+    save_dir = args.save_dir if rank() == 0 else None
 
     def objects():
         for oi in range(args.object_start,
@@ -56,7 +67,7 @@ def main(argv=None):
                           args.gripper_start + args.num_fingers))
         )
         out = pipeline_2d(
-            list(objects()), gidx, save_dir=args.save_dir,
+            list(objects()), gidx, save_dir=save_dir,
             grid_size=args.grid_size, num_pos=args.num_pos,
             device=args.device,
         )

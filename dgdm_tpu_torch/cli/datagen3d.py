@@ -14,6 +14,10 @@ loops the other way, ``sim/run_sim_3d.sh``): each gripper's host geometry
 ``engine3d._GRIP_CACHE`` and ``rollout3d``'s fit cache for every object,
 and the OBJ parse is memoized across blocks.
 
+Over N GPUs, start N processes with the environment contract of
+``parallel/distributed.py``: each block's pairs split over the ranks when
+``--pairs_per_batch`` divides by N, and rank 0 writes the shards.
+
 Example (reference: 300 objects x 2000 grippers):
     python -m dgdm_tpu_torch.cli.datagen3d --object_dir scanned_objects \\
         --num_objects 300 --num_fingers 2000 --save_dir data/sim3d
@@ -29,6 +33,10 @@ import numpy as np
 from dgdm_tpu_torch.cli.datagen import add_totals
 from dgdm_tpu_torch.core.flags import build_parser
 from dgdm_tpu_torch.geom import mesh3d
+from dgdm_tpu_torch.parallel.distributed import (
+    maybe_initialize_distributed,
+    rank,
+)
 from dgdm_tpu_torch.sim.pipeline import pipeline_3d
 
 
@@ -60,6 +68,8 @@ def main(argv=None):
     p.add_argument("--object_start", type=int, default=0)
     p.add_argument("--gripper_start", type=int, default=0)
     args = p.parse_args(argv)
+    maybe_initialize_distributed()
+    save_dir = args.save_dir if rank() == 0 else None
 
     names = load_object_names(args.object_dir) if args.object_dir else None
     obj_cache: dict = {}
@@ -90,7 +100,7 @@ def main(argv=None):
                  for oi in range(args.object_start,
                                  args.object_start + args.num_objects)]
         out = pipeline_3d(
-            items, gidx, save_dir=args.save_dir,
+            items, gidx, save_dir=save_dir,
             grid_size=args.grid_size, num_pos=args.num_pos,
             device=args.device,
         )

@@ -14,6 +14,13 @@ Checkpoints are the directories that the training CLIs write
 state_dict saved by the port). ``--render_video`` waits for a later slice of
 the port.
 
+Over N GPUs, start N processes with the environment contract of
+``parallel/distributed.py`` (one process a GPU): with more than one rank
+and ``--grid_size`` divisible by the mesh's sp size, the design loop runs
+on a (dp, sp) mesh (``parallel/mesh.make_mesh``), its pose grid split over
+sp; verification splits the grippers over all ranks
+(``eval/simeval.py``); rank 0 writes the report and the ``.npy`` files.
+
 Examples:
     python -m dgdm_tpu_torch.cli.sample --diffusion_checkpoint_path unet.npz \\
         --checkpoint_path dyn2d.npz --save_dir runs/guided2d \\
@@ -47,6 +54,12 @@ from dgdm_tpu_torch.eval.simeval import objectives_table, sim_eval_batch_2d
 from dgdm_tpu_torch.eval.simeval3d import sim_eval_batch_3d
 from dgdm_tpu_torch.geom.contour import extract_contours, load_icon, synthetic_icon
 from dgdm_tpu_torch.models import convert
+from dgdm_tpu_torch.parallel.distributed import (
+    maybe_initialize_distributed,
+    rank,
+    world_size,
+)
+from dgdm_tpu_torch.parallel.mesh import make_mesh
 from dgdm_tpu_torch.train import generator
 
 
@@ -100,6 +113,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.render_video:
         raise NotImplementedError("--render_video is not ported yet")
+    maybe_initialize_distributed()
+    writer = rank() == 0
     f3d = args.fingers_3d
     device = torch.device(args.device)
     # design and verification run in float32 (no TF32 products)
@@ -128,11 +143,22 @@ def main(argv=None):
     # --sub_bs = rows per pose-grid chunk (the reference's sub-batching)
     n_poses = args.grid_size * args.num_pos**2
     pose_chunks = max(1, -(-n_poses // max(args.sub_bs, 1)))
+    # multi-GPU: the pose grid splits over the mesh's sp axis when it
+    # divides evenly, else every rank sweeps all of it
+    mesh = None
+    if world_size() > 1:
+        cand = make_mesh(axes=("dp", "sp"))
+        if args.grid_size % cand.size("sp") == 0:
+            mesh = cand
+        if writer:
+            print(f"design loop mesh: {cand.shape}"
+                  f"{'' if mesh else ' (grid does not split; unsharded)'}",
+                  flush=True)
     sampler = GuidedSampler(
         unet, classifier, grid_size=args.grid_size, num_pos=args.num_pos,
         num_train_timesteps=args.num_train_timesteps,
         num_inference_steps=args.num_inference_steps,
-        pose_chunks=pose_chunks, device=device,
+        pose_chunks=pose_chunks, device=device, mesh=mesh,
     )
 
     # --eval_steps > 0 overrides the reference rollout length (8k 2D / 32k
@@ -197,8 +223,9 @@ def main(argv=None):
                                          s_scales)
         _sync(device)
         sweep_seconds = time.perf_counter() - t0
-        print(f"design sweep: {len(s_labels)} (objective x object) pairs "
-              f"sampled in {sweep_seconds:.2f}s", flush=True)
+        if writer:
+            print(f"design sweep: {len(s_labels)} (objective x object) "
+                  f"pairs sampled in {sweep_seconds:.2f}s", flush=True)
         sweep_samples = {lab: sweep_out[i] for i, lab in enumerate(s_labels)}
     for objective in objectives:
         per_object = {}
@@ -216,9 +243,10 @@ def main(argv=None):
                 **table_entry(metrics, objective),
                 "unguided": table_entry(unguided_metrics[oi], objective),
             }
-            np.save(os.path.join(args.save_dir,
-                                 f"samples_{objective}_{oid}.npy"),
-                    samples.detach().cpu().numpy())
+            if writer:
+                np.save(os.path.join(args.save_dir,
+                                     f"samples_{objective}_{oid}.npy"),
+                        samples.detach().cpu().numpy())
         entry = {"objects": per_object}
         # multi-object guided sampling: gradient averaged over all test
         # objects (convergence is per-object-centered, excluded there too)
@@ -233,18 +261,22 @@ def main(argv=None):
             }
             entry["multi_object_average"] = objs_entry(
                 average_objectives(mo_objs), objective)
-            np.save(os.path.join(args.save_dir,
-                                 f"samples_{objective}_multi.npy"),
-                    msamples.detach().cpu().numpy())
+            if writer:
+                np.save(os.path.join(args.save_dir,
+                                     f"samples_{objective}_multi.npy"),
+                        msamples.detach().cpu().numpy())
         report[objective] = entry
-        print(f"objective {objective} done", flush=True)
+        if writer:
+            print(f"objective {objective} done", flush=True)
     if sweep_names:
         report["design_sweep"] = {"pairs": len(s_labels),
                                   "seconds": sweep_seconds}
     report["verification"] = {"seconds": verify_seconds[0],
                               "device": str(device)}
-    with open(os.path.join(args.save_dir, "guided_report.json"), "w") as f:
-        json.dump(report, f, indent=1, default=str)
+    if writer:
+        with open(os.path.join(args.save_dir, "guided_report.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1, default=str)
     return report
 
 

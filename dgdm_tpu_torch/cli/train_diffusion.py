@@ -2,11 +2,16 @@
 ``dgdm_tpu/cli/train_diffusion.py`` (counterpart of the reference
 ``generator/train.py`` + ``generator/train_diffusion_2d.sh``: 200k
 procedural grippers, batch 2048, 1000 epochs, DDIM 15 train timesteps, EMA
-power 0.85), on one device.
+power 0.85).
 
 Example:
     python -m dgdm_tpu_torch.cli.train_diffusion --num_fingers 200000 \\
         --batch_size 2048 --num_epochs 1000 --save_dir runs/diff2d
+
+Data parallel over N GPUs: start N processes with the environment contract
+of ``parallel/distributed.py``; ``--batch_size`` is the global batch, each
+rank keeping its block (``parallel/mesh.shard_global_batch``), and rank 0
+writes the metrics and checkpoints.
 
 The procedural training set lives on the device for the whole run (it is a
 few MB); each epoch's batches follow ``RandomState(seed).permutation`` as in
@@ -32,6 +37,11 @@ import torch
 from dgdm_tpu_torch.core.flags import build_parser
 from dgdm_tpu_torch.core.profiling import StepTimer, TraceWindow
 from dgdm_tpu_torch.models.unet1d import ConditionalUnet1D
+from dgdm_tpu_torch.parallel import mesh as meshlib
+from dgdm_tpu_torch.parallel.distributed import (
+    maybe_initialize_distributed,
+    rank,
+)
 from dgdm_tpu_torch.train import checkpoints
 from dgdm_tpu_torch.train.data import procedural_grippers, to_device
 from dgdm_tpu_torch.train.generator import GeneratorTrainer
@@ -40,6 +50,7 @@ from dgdm_tpu_torch.train.logging import MetricSink
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    maybe_initialize_distributed()
     device = torch.device(args.device)
     # float32 products in TF32 (cuBLAS, cuDNN): the JAX trainers' float32
     # products run at XLA's default precision (one bfloat16 pass on a TPU)
@@ -52,6 +63,9 @@ def main(argv=None):
     torch.manual_seed(args.seed)
     model = ConditionalUnet1D(input_dim=1)
     steps_per_epoch = max(1, len(train) // args.batch_size)
+    mesh = meshlib.data_parallel_mesh()
+    if mesh is not None and rank() == 0:
+        print(f"data-parallel over {mesh.size('dp')} devices", flush=True)
     trainer = GeneratorTrainer(
         model,
         learning_rate=args.learning_rate,
@@ -61,6 +75,7 @@ def main(argv=None):
         warmup_steps=args.lr_warmup_steps,
         device=device,
         seed=args.seed + 1,
+        mesh=mesh,
     )
     if args.diffusion_checkpoint_path:
         checkpoints.restore(args.diffusion_checkpoint_path, trainer)
@@ -81,7 +96,8 @@ def main(argv=None):
             for lo in range(0, len(order) - args.batch_size + 1,
                             args.batch_size):
                 t = time.perf_counter()
-                idx = torch.from_numpy(order[lo: lo + args.batch_size])
+                idx = meshlib.shard_global_batch(
+                    mesh, torch.from_numpy(order[lo: lo + args.batch_size]))
                 batch = train_dev[idx.to(device)]
                 data_s += time.perf_counter() - t
                 tracer.step(step)
@@ -95,7 +111,8 @@ def main(argv=None):
                              step)
                     sink.log({"perf/grippers_per_second": timer.rate()}, step)
             if epoch % args.val_step == 0 and len(val) >= args.batch_size:
-                vbatch = to_device(val[: args.batch_size], device)
+                vbatch = to_device(meshlib.shard_global_batch(
+                    mesh, val[: args.batch_size]), device)
                 vm = trainer.eval_step(vbatch)
                 vm.update(trainer.recon_metrics(
                     vbatch, num_inference_steps=args.num_inference_steps))
@@ -110,7 +127,8 @@ def main(argv=None):
                     best.append((vloss, path))
                     best.sort(key=lambda b: b[0])
                     for _, stale in best[10:]:
-                        shutil.rmtree(stale, ignore_errors=True)
+                        if rank() == 0:
+                            shutil.rmtree(stale, ignore_errors=True)
                     best = best[:10]
             if (epoch + 1) % 50 == 0:
                 checkpoints.save(

@@ -9,6 +9,13 @@ Example:
 (batch_size counts PAIRS; each pair expands to grid_size*num_pos^2 rows like
 the reference's in-loop reshape, dynamics/main.py:143-147.)
 
+Data parallel over N GPUs: start N processes with the environment contract
+of ``parallel/distributed.py`` (one process a GPU). ``--batch_size`` is
+then the global batch: every rank builds it from the same seed and keeps
+its block of rows (``parallel/mesh.shard_global_batch``), the model trains
+under DDP with BatchNorm on the global statistics, and rank 0 writes the
+metrics and checkpoints.
+
 Writes ``metrics.jsonl`` (``train/loss``, ``train/acc_*``,
 ``perf/rows_per_second``, ``val/*``) and checkpoint directories
 ``ckpt/step_<n>``, ``ckpt/best`` and ``ckpt/last`` (``train/checkpoints.py``;
@@ -30,6 +37,11 @@ import torch
 from dgdm_tpu_torch.core.flags import build_parser
 from dgdm_tpu_torch.core.profiling import StepTimer, TraceWindow
 from dgdm_tpu_torch.models.profile2d import ProfileForward2D
+from dgdm_tpu_torch.parallel import mesh as meshlib
+from dgdm_tpu_torch.parallel.distributed import (
+    maybe_initialize_distributed,
+    rank,
+)
 from dgdm_tpu_torch.train import checkpoints
 from dgdm_tpu_torch.train.data import DynamicsData, to_device
 from dgdm_tpu_torch.train.dynamics import DynamicsTrainer
@@ -38,6 +50,7 @@ from dgdm_tpu_torch.train.logging import MetricSink
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    maybe_initialize_distributed()
     device = torch.device(args.device)
     # float32 products in TF32 (cuBLAS, cuDNN): the JAX trainers' float32
     # products run at XLA's default precision (one bfloat16 pass on a TPU)
@@ -53,6 +66,11 @@ def main(argv=None):
     model = ProfileForward2D(params_ch=args.ctrlpts_dim,
                              object_ch=2 * args.object_max_num_vertices)
     steps_per_epoch = max(1, len(train_data) // max(args.batch_size, 1))
+    # data parallelism over every process (reference: dynamics/trainer.py
+    # wraps every run in DataParallel)
+    mesh = meshlib.data_parallel_mesh()
+    if mesh is not None and rank() == 0:
+        print(f"data-parallel over {mesh.size('dp')} devices", flush=True)
     trainer = DynamicsTrainer(
         model,
         learning_rate=args.learning_rate,
@@ -63,6 +81,7 @@ def main(argv=None):
         bf16=args.bf16,
         device=device,
         seed=args.seed + 1,
+        mesh=mesh,
     )
     rng = np.random.RandomState(args.seed)
     # the JAX CLI initialises from this first batch; drawing it keeps the
@@ -74,8 +93,12 @@ def main(argv=None):
     sink = MetricSink(args.save_dir, project="dynamics_model",
                       run_name=args.wandb_id)
 
+    def local(batch):
+        """This rank's block of a global batch, on the device."""
+        return to_device(meshlib.shard_global_batch(mesh, batch), device)
+
     def run_eval():
-        ms = [trainer.eval_step(to_device(b, device))
+        ms = [trainer.eval_step(local(b))
               for b in val_data.batches(args.batch_size, rng, shuffle=False)]
         return {f"val/{m}": float(np.mean([float(x[m]) for x in ms]))
                 for m in ms[0]} if ms else {}
@@ -105,9 +128,9 @@ def main(argv=None):
                 batch = next(batches, None)
                 if batch is None:
                     break
-                batch = to_device(batch, device)
-                data_s += time.perf_counter() - t
                 rows = batch["ctrl"].shape[0]
+                batch = local(batch)
+                data_s += time.perf_counter() - t
                 tracer.step(step)
                 metrics = trainer.train_step(batch)
                 step += 1

@@ -7,10 +7,16 @@ over poses to bound the live-activation footprint), the epsilon correction
 ``eps <- eps - sqrt(1 - abar_t) * grad * scale``, and the DDIM update.
 
 The models carry their weights (``nn.Module``s in ``eval()`` mode, loaded
-with ``models/convert.py``), so the methods take no parameter trees. The
-``mesh``/``sp`` pose-grid sharding of the JAX sampler waits for the
-multi-GPU slice. Plain matrix products stay torch ops, as the JAX package
-leaves them to XLA.
+with ``models/convert.py``), so the methods take no parameter trees. Plain
+matrix products stay torch ops, as the JAX package leaves them to XLA.
+
+With a ``mesh`` (``parallel/mesh.make_mesh``, one process a GPU) the pose
+grid shards over its ``sp`` axis, as the JAX sampler's does: each sp rank
+takes its contiguous block of the poses (and the matching rows of
+per-pose objective weights), and the (B, L) gradient is summed over the sp
+group (JAX's ``psum``; no autograd runs through the collective). The block
+is the memory bound there, so ``pose_chunks`` collapses to 1. Every rank
+returns the same samples; the dp axis replicates the loop.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from dgdm_tpu_torch.design.objectives import (
     convergence_centers,
 )
 from dgdm_tpu_torch.diffusion import ddim
+from dgdm_tpu_torch.parallel import mesh as meshlib
 
 
 def pose_grid_normalized(
@@ -56,6 +63,7 @@ class GuidedSampler2D:
         num_inference_steps: int = DIFFUSION.num_inference_steps,
         pose_chunks: int = 12,
         device="cuda",
+        mesh=None,
     ):
         self.device = torch.device(device)
         self.unet = unet.to(self.device).eval().requires_grad_(False)
@@ -66,7 +74,8 @@ class GuidedSampler2D:
         self.num_inference_steps = num_inference_steps
         self.grid_size = grid_size
         self.num_pos = num_pos
-        self.pose_chunks = pose_chunks
+        self.mesh = mesh
+        self.pose_chunks = 1 if mesh is not None else pose_chunks
 
     # -- plumbing -------------------------------------------------------------
 
@@ -128,6 +137,21 @@ class GuidedSampler2D:
         base = SIMPLE_OBJECTIVES[objective](torch.eye(3, device=self.device))
         return base.expand(n, 1, 3), False
 
+    def _local_poses(self, poses: torch.Tensor, weights=None):
+        """This sp rank's block of the pose grid (and of per-pose weights
+        (N, ...)); everything without a mesh."""
+        n = poses.shape[0]
+        if self.mesh is None or self.mesh.size("sp") == 1:
+            return poses, weights
+        if n % self.mesh.size("sp"):
+            raise ValueError(f"{n} poses do not split over "
+                             f"sp = {self.mesh.size('sp')}")
+        sl = meshlib.block(self.mesh, n, "sp")
+        if weights is not None and weights.ndim == 3 and \
+                weights.shape[0] == n:
+            weights = weights[sl]
+        return poses[sl], weights
+
     # -- guidance gradient ----------------------------------------------------
 
     def cond_grad(self, x: torch.Tensor, t: int, obj_feat: torch.Tensor,
@@ -135,6 +159,7 @@ class GuidedSampler2D:
                   poses: torch.Tensor) -> torch.Tensor:
         """d(sum objective over pose grid)/dx. x (B, L, 1); poses (N, 3);
         obj_feat (W,) precomputed object feature."""
+        poses, weights = self._local_poses(poses, weights)
         b, l, _ = x.shape
         n = poses.shape[0]
         # largest divisor of n not exceeding the requested chunk count
@@ -164,13 +189,15 @@ class GuidedSampler2D:
                         else weights
                     obj = torch.sum(w * deltas)
                 grads.append(torch.autograd.grad(obj, xf)[0])
-        return torch.stack(grads).sum(0)[..., None]               # (B, L, 1)
+        g = torch.stack(grads).sum(0)[..., None]                  # (B, L, 1)
+        return meshlib.all_reduce_sum(self.mesh, g, "sp")
 
     def _sweep_grad(self, x, t, obj_feats, weights, rsq, poses,
                     row_budget: int = 65536) -> torch.Tensor:
         """d(sum objective)/dx for K fused (objective, object) pairs.
         x (K, B, L, 1); obj_feats (K, W); weights (K, 3); rsq (K,); the pose
         axis is chunked so each trunk call sees ~row_budget rows."""
+        poses, _ = self._local_poses(poses)
         k, b, l, _ = x.shape
         n = poses.shape[0]
         w_feat = obj_feats.shape[-1]
@@ -198,7 +225,8 @@ class GuidedSampler2D:
                 lin = torch.sum(weights[:, None, None, :] * deltas, dim=-1)
                 obj = torch.sum(lin + rsq[:, None, None] * deltas[..., 0] ** 2)
                 grads.append(torch.autograd.grad(obj, xf)[0])
-        return torch.stack(grads).sum(0)[..., None]            # (K, B, L, 1)
+        g = torch.stack(grads).sum(0)[..., None]               # (K, B, L, 1)
+        return meshlib.all_reduce_sum(self.mesh, g, "sp")
 
     # -- guided sampling ------------------------------------------------------
 

@@ -9,6 +9,14 @@ squeeze (t = 200) and the final converged pose after 8,000 steps — one
 launch of the rollout kernel per object, all grippers batched, with the
 contact solver of ``engine2d.SOLVER``. ``eval_rollout_batch`` runs the same
 schedule through the pure engine.
+
+In a multi-process run (``parallel/distributed.py``) the grippers split
+over the dp ranks when their count divides the world: each rank builds the
+scenes of its block and launches the kernel on them, and the outputs are
+all-gathered before the metrics, so every rank returns every gripper's
+metrics (the Ray eval fan-out analog, ``dynamics/sim_test_mj.py:265-282``).
+A pair's rollouts do not depend on the other pairs, so the result equals
+the one-process result bit for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 from dgdm_tpu_torch.core.config import SIM
 from dgdm_tpu_torch.eval.metrics import metric2objective, profile_metrics_2d
 from dgdm_tpu_torch.geom.fingers import denormalize_y
+from dgdm_tpu_torch.parallel.mesh import all_gather_rows
 from dgdm_tpu_torch.sim import datagen, engine2d, rollout2d
 from dgdm_tpu_torch.sim.types import Scene2D
 
@@ -91,14 +100,15 @@ def sim_eval_batch_2d(
         np.stack([np.zeros_like(th_p), np.zeros_like(th_p), th_p], -1)
     ).to(device)
 
+    mesh, y_local = datagen.dp_split(y)
     results = []
     for contour in contours:
         stacked = datagen.stack_scenes(
-            [engine2d.make_scene(y[i, :n], y[i, n:], contour)
-             for i in range(b)])
+            [engine2d.make_scene(yi[:n], yi[n:], contour) for yi in y_local])
         arrs = rollout2d.scene_arrays(stacked, calib=calib, device=device)
         dth, dpos, fth, fpos = (
-            t[:, :num_rot].cpu().numpy() for t in rollout2d.profile_batch(
+            all_gather_rows(mesh, t[:, :num_rot].cpu().numpy())
+            for t in rollout2d.profile_batch(
                 *arrs, poses, steps=total_steps,
                 regrasp_every=regrasp_every, snapshot_step=regrasp_every))
         for i in range(b):

@@ -7,7 +7,9 @@ Counterpart of ``dynamics/sim_test_mj_3d.py:94-277``: 360 orientations x
 recorded after the first squeeze (t = 800) and the final pose at the end —
 one launch of the rollout kernel per object, all grippers batched, with the
 contact solver of ``engine3d.SOLVER3``. ``eval_rollout_batch_3d`` runs the
-same schedule through the pure engine.
+same schedule through the pure engine. In a multi-process run both split
+the grippers over the dp ranks and gather the outputs, as
+``eval/simeval.py`` does.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from dgdm_tpu_torch.core.config import NORM, SIM
 from dgdm_tpu_torch.eval.metrics import three_class, wrap_pi
 from dgdm_tpu_torch.geom.fingers import denormalize_y
+from dgdm_tpu_torch.parallel.mesh import all_gather_rows
 from dgdm_tpu_torch.sim import datagen, engine3d, rollout3d
 
 
@@ -35,10 +38,13 @@ def eval_rollout_batch_3d(
     (G,) initial orientations at position (0, 0), on the scenes' device.
 
     Returns per (B, G): delta_theta/delta_pos after the first squeeze and
-    final_theta/final_pos after the full re-grasp schedule."""
+    final_theta/final_pos after the full re-grasp schedule (in a
+    multi-process run each dp rank rolls out its block of the pairs and
+    every rank returns all of them)."""
     if not 0 < first_squeeze <= total_steps:
         raise ValueError(f"first_squeeze {first_squeeze} must lie in "
                          f"(0, total_steps = {total_steps}]")
+    mesh, scenes = datagen.dp_split(scenes)
     sc = engine3d.expand_scene3(engine3d.with_hgrid(scenes), 1)
     zero = torch.zeros_like(thetas)
     pose = torch.stack([zero, zero, thetas], -1)
@@ -53,7 +59,8 @@ def eval_rollout_batch_3d(
             d_theta, d_pos = engine3d._readout(sc, state, pose)[:2]
     final_theta = engine3d._z_angle(state.quat)
     final_pos = engine3d._readout(sc, state, pose)[1]
-    return d_theta, d_pos, final_theta, final_pos
+    return tuple(all_gather_rows(mesh, t)
+                 for t in (d_theta, d_pos, final_theta, final_pos))
 
 
 def sim_eval_batch_3d(
@@ -84,17 +91,19 @@ def sim_eval_batch_3d(
     ).to(device)
     th3 = NORM.threshold_3d
 
+    mesh, y_local = datagen.dp_split(y)
     results = []
     for verts, faces in objects:
         # object host work shared across the gripper batch
         obj_props = engine3d.object_properties_3d(verts, faces)
         stacked = datagen.stack_scenes([
-            engine3d.make_scene(y[i, :n], y[i, n:], verts, faces,
+            engine3d.make_scene(yi[:n], yi[n:], verts, faces,
                                 obj_props=obj_props)
-            for i in range(b)])
+            for yi in y_local])
         arrs = rollout3d.scene_arrays_3d(stacked, calib=calib, device=device)
         d_theta, d_pos, f_theta, _valid, f_pos = (
-            t[:, :num_rot].cpu().numpy() for t in rollout3d.profile_batch(
+            all_gather_rows(mesh, t[:, :num_rot].cpu().numpy())
+            for t in rollout3d.profile_batch(
                 *arrs, poses, steps=total_steps,
                 regrasp_every=regrasp_every, snapshot_step=regrasp_every))
         for i in range(b):

@@ -1,11 +1,12 @@
-"""Procedural gripper sampling — port of ``dgdm_tpu/geom/fingers.py``
-(its on-device ``fast_sample_y`` waits for the training slice).
+"""Procedural gripper sampling — port of ``dgdm_tpu/geom/fingers.py``.
 
 The reference regenerates its diffusion training set from
 ``np.random.RandomState(idx)`` seeds (``generator/train.py:42-58``) and uses
 the same seeds during datagen (``sim/sim_2d.py:74-77``,
 ``sim/sim_3d.py:73-75``): the seed IS the dataset, so ``sample_gripper_2d``
-and ``sample_gripper_3d`` stay bit-exact numpy MT19937.
+and ``sample_gripper_3d`` stay bit-exact numpy MT19937. ``fast_sample_y``
+draws on the device from a ``torch.Generator`` for throughput workloads;
+its stream is torch's, not JAX's PRNG nor MT19937.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from dgdm_tpu_torch.core.config import GRIPPER_2D, GRIPPER_3D
 
@@ -46,6 +48,16 @@ def sample_grippers_batch(
     """(count, 2, n_ctrl) stacked [yl, yr] for idx in [start, start+count)."""
     fn = sample_gripper_3d if fingers_3d else sample_gripper_2d
     return np.stack([np.stack(fn(i)) for i in range(start, start + count)])
+
+
+def fast_sample_y(generator: torch.Generator, count: int,
+                  fingers_3d: bool = False, device="cuda") -> torch.Tensor:
+    """On-device batch sampler: (count, 2, n_ctrl) float32 uniform in the
+    ctrl-y range, from ``generator`` (which lives on ``device``)."""
+    g = GRIPPER_3D if fingers_3d else GRIPPER_2D
+    u = torch.rand((count, 2, g.num_ctrl), generator=generator,
+                   dtype=torch.float32, device=device)
+    return g.ctrl_y_min + u * (g.ctrl_y_max - g.ctrl_y_min)
 
 
 def ctrlpts_2d(yl: np.ndarray, yr: np.ndarray) -> np.ndarray:

@@ -35,13 +35,34 @@ class BatchNorm(nn.BatchNorm1d):
     float32 (centred, with an order of summation that keeps it within
     float32 rounding of the exact value: a plain float32 sum over the
     131,072 rows of a PointNet++ BatchNorm is off by up to ~1e-4). In eval
-    mode it is torch's."""
+    mode it is torch's.
+
+    With ``group`` set (``set_sync_group``: a data-parallel trainer's dp
+    group), the statistics are those of the global batch, as flax's are
+    under a sharded batch: the ranks' sums of x and x^2 are all-reduced by
+    a differentiable collective, so the backward pass sees the global
+    statistics too, and every rank's running statistics stay equal."""
+
+    group = None
+
+    def _stats(self, xf):
+        if self.group is None:
+            return torch.var_mean(xf, dim=0, unbiased=False)
+        from torch.distributed.nn.functional import all_reduce
+
+        n = torch.tensor([float(xf.shape[0])], device=xf.device)
+        sums = all_reduce(torch.cat([xf.sum(0), (xf * xf).sum(0), n]),
+                          group=self.group)
+        c = xf.shape[1]
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+        return var, mean
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         xf = x.float()
-        var, mean = torch.var_mean(xf, dim=0, unbiased=False)
+        var, mean = self._stats(xf)
         with torch.no_grad():
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean
@@ -51,6 +72,14 @@ class BatchNorm(nn.BatchNorm1d):
             self.num_batches_tracked += 1
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+def set_sync_group(model: nn.Module, group) -> None:
+    """Train every ``BatchNorm`` of ``model`` on the statistics summed over
+    ``group`` (None: this rank's batch alone)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 class MLP2(nn.Module):

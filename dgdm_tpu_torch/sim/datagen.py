@@ -17,6 +17,13 @@ host buffers are queued behind the kernel with an event, so that
 ``sim/pipeline.py`` bakes the next batch meanwhile. ``use_pallas=False``
 runs the pure engine (``engine2d.profile_batch``) instead, ``chunk`` poses at
 a time, as the JAX package's calibrated path does.
+
+In a multi-process run (``parallel/distributed.py``) the pairs split over
+the dp ranks when their count divides the world: rank r runs its
+contiguous block on its own device, and the fetch all-gathers the blocks,
+so every rank returns the whole result, as JAX's global array is. When the
+count does not divide, every rank runs all pairs (JAX's single-device
+fallback).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from dgdm_tpu_torch.core.config import GRIPPER_2D, SIM
 from dgdm_tpu_torch.core.transfer import Stamp, download_async, upload, wait
 from dgdm_tpu_torch.geom.fingers import ctrlpts_2d, sample_gripper_2d
 from dgdm_tpu_torch.geom.spline import cubic_basis_matrix
+from dgdm_tpu_torch.parallel import mesh as meshlib
 from dgdm_tpu_torch.sim import engine2d, rollout2d
 from dgdm_tpu_torch.sim.types import Scene2D, to_device
 
@@ -60,25 +68,40 @@ def pad_poses(poses: np.ndarray, lane: int = rollout2d.LANE) -> np.ndarray:
     return np.concatenate([poses, filler], axis=0)
 
 
-def launch(run, outputs: Sequence[str], poses: np.ndarray, device):
+def dp_split(batch):
+    """(dp mesh, this rank's block of ``batch``): a tree of arrays or a
+    stacked scene batch, split over the dp ranks when its leading
+    dimension divides the world; (None, batch) otherwise and in one
+    process."""
+    mesh = meshlib.data_parallel_mesh()
+    b = meshlib.leaves(batch)[0].shape[0]
+    if mesh is None or b % mesh.size("dp"):
+        return None, batch
+    return mesh, meshlib.shard_batch(mesh, batch)
+
+
+def launch(run, outputs: Sequence[str], poses: np.ndarray, device,
+           mesh=None):
     """Upload the padded poses, run ``run(poses_tensor)`` (the kernel
     launch, returning tensors named ``outputs``), and queue the results'
-    copies to the host -> a pending result for ``fetch``."""
+    copies to the host -> a pending result for ``fetch``, which gathers
+    the pair blocks over ``mesh``'s dp ranks."""
     poses_p = upload(pad_poses(poses), device, torch.float32)
     start = Stamp(device)
     outs = run(poses_p)
     end = Stamp(device)
     host, ready = download_async(dict(zip(outputs, outs)))
     return {**host, "n": poses.shape[0], "ready": ready,
-            "launch": (start, end)}
+            "launch": (start, end), "mesh": mesh}
 
 
 def fetch(res: Dict, keys: Sequence[str]) -> List[np.ndarray]:
     """Wait for a pending result's copies; its arrays cut to the unpadded
-    pose count."""
+    pose count, every dp rank's pairs gathered in order."""
     wait(res["ready"])
     n = res["n"]
-    return [res[k][:, :n].numpy() for k in keys]
+    return [meshlib.all_gather_rows(res["mesh"], res[k][:, :n].numpy())
+            for k in keys]
 
 
 def kernel_seconds(res: Dict) -> float:
@@ -115,7 +138,10 @@ def profile_pairs_2d(
 
     Returns dict with delta_theta (B, N), delta_pos (B, N, 2), final_theta.
     With ``block=False`` it returns once the work is queued (CUDA launches
-    are asynchronous): materialize with ``fetch_pairs_2d``."""
+    are asynchronous): materialize with ``fetch_pairs_2d``. In a
+    multi-process run each dp rank runs its block of the pairs (module
+    docstring)."""
+    mesh, scenes = dp_split(scenes)
     if use_pallas:
         arrs = rollout2d.scene_arrays(scenes, calib=calib, device=device)
 
@@ -130,7 +156,7 @@ def profile_pairs_2d(
                                            calib=calib)
                     for lo in range(0, n, chunk)]
             return [torch.cat([o[k] for o in outs], dim=1) for k in range(3)]
-    res = launch(run, OUT_KEYS_2D, poses, device)
+    res = launch(run, OUT_KEYS_2D, poses, device, mesh)
     return res if not block else fetch_pairs_2d(res)
 
 

@@ -10,7 +10,8 @@ the reference's all-or-nothing output. One ``object_properties_3d`` per
 object is shared by a gripper block, so K2 runs at its 256 contact points.
 ``profile_pairs_3d(use_pallas=False)`` runs the pure engine instead
 (``engine3d.profile_batch``), ``pose_chunk`` poses a call, as the JAX
-package does off the TPU.
+package does off the TPU. Both routes split the pairs over the dp ranks of
+a multi-process run as ``sim/datagen.py`` does.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from dgdm_tpu_torch.geom.spline import (
 )
 from dgdm_tpu_torch.sim import engine3d, rollout3d
 from dgdm_tpu_torch.sim.datagen import (
+    dp_split,
     fetch,
     launch,
     make_record,
@@ -89,7 +91,9 @@ def profile_pairs_3d(
     plain version for CPU tensors), the pose batch padded to a multiple of
     128. ``use_pallas=False``: the pure engine on the scenes' baked height
     grids, ``pose_chunk`` poses a call. With ``block=False`` it returns once
-    the work is queued; materialize with ``fetch_pairs_3d``."""
+    the work is queued; materialize with ``fetch_pairs_3d``. In a
+    multi-process run each dp rank runs its block of the pairs."""
+    mesh, stacked = dp_split(stacked)
     if use_pallas:
         arrs = rollout3d.scene_arrays_3d(stacked, calib=calib,
                                          device=device)
@@ -109,7 +113,7 @@ def profile_pairs_3d(
             return [torch.cat([o[k] for o in outs], dim=1)
                     for k in (0, 1, 3)]
 
-    res = launch(run, OUT_KEYS_3D, poses, device)
+    res = launch(run, OUT_KEYS_3D, poses, device, mesh)
     return res if not block else fetch_pairs_3d(res)
 
 

@@ -12,7 +12,11 @@ A checkpoint is a directory holding two files:
   CLI's ``ckpt/<name>`` directory as it is.
 
 ``save`` writes into a sibling temporary directory and renames it into
-place, replacing an older checkpoint of the same name.
+place, replacing an older checkpoint of the same name. In a
+``torch.distributed`` run every rank calls it with the same path; rank 0
+writes (the trainers' state is equal on every rank) and all ranks then meet
+at a barrier, so none reads or replaces the directory early. ``restore``
+runs on every rank.
 """
 
 from __future__ import annotations
@@ -22,15 +26,23 @@ import shutil
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from dgdm_tpu_torch.models import convert
+from dgdm_tpu_torch.parallel.distributed import rank
 
 TRAIN_STATE = "train_state.pt"
 MODEL_NPZ = "model.npz"
 
 
 def save(path: str, trainer: Any) -> None:
-    path = os.path.abspath(path)
+    if rank() == 0:
+        _write(os.path.abspath(path), trainer)
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def _write(path: str, trainer: Any) -> None:
     model = trainer.inference_model()
     kind = convert.kind_of(model)
     tmp = path + ".tmp"

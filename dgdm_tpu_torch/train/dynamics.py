@@ -15,6 +15,14 @@ draws. BatchNorm trains as flax's does (``models/profile2d.BatchNorm``).
 With ``bf16`` the Linear layers compute in bfloat16 under autocast while
 parameters, BatchNorm statistics and the head stay float32, as the flax
 model's ``dtype=bfloat16`` does.
+
+With a dp ``mesh`` (``parallel/mesh.py``) the model trains under
+``DistributedDataParallel`` on this rank's block of the global batch, as
+the JAX trainer's state is replicated and its batch sharded: every rank
+draws the global batch's t and noise and keeps its block, BatchNorm takes
+the global statistics, and the metrics are global-batch means. Adam and
+the parameters stay equal on every rank; ``state_dict`` holds the inner
+module's keys.
 """
 
 from __future__ import annotations
@@ -26,6 +34,11 @@ import torch
 from dgdm_tpu_torch.core.config import DIFFUSION, NORM
 from dgdm_tpu_torch.diffusion import ddim
 from dgdm_tpu_torch.models.profile2d import ProfileForward2D
+from dgdm_tpu_torch.parallel.mesh import (
+    global_draw,
+    mean_over_dp,
+    wrap_data_parallel,
+)
 from dgdm_tpu_torch.train.data import to_device
 from dgdm_tpu_torch.train.schedule import adam, cosine_lr
 
@@ -48,9 +61,13 @@ class DynamicsTrainer:
         bf16: bool = False,
         device="cuda",
         seed: int = 0,
+        mesh=None,
     ):
         self.device = torch.device(device)
         self.model = (model or ProfileForward2D()).to(self.device)
+        self.mesh = mesh
+        # the module that trains: DDP over the dp group, or the model
+        self.net = wrap_data_parallel(mesh, self.model, self.device)
         self.sched = ddim.make_schedule(num_train_timesteps)
         self.num_train_timesteps = num_train_timesteps
         self.fingers_3d = fingers_3d
@@ -77,6 +94,12 @@ class DynamicsTrainer:
                             device=self.device)
         return t, noise
 
+    def _draw_block(self, rows: int, ctrl_dim: int):
+        """This rank's block of the global batch's draws (all of them
+        without a dp mesh)."""
+        return global_draw(self.mesh, rows,
+                           lambda n: self.draw(n, ctrl_dim))
+
     def _inputs(self, batch, t, noise):
         # ctrl is the y-vector of the control points in 2D and 3D alike, so
         # noising all of it is the reference's y-row-only noising
@@ -84,10 +107,10 @@ class DynamicsTrainer:
         t_rescaled = t.to(torch.float32) / self.num_train_timesteps
         return noisy, t_rescaled
 
-    def _forward(self, batch, noisy, t_rescaled):
+    def _forward(self, batch, noisy, t_rescaled, net=None):
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.bf16):
-            return self.model(noisy, batch["ori"], batch["pos"], t_rescaled,
+            return (net or self.model)(noisy, batch["ori"], batch["pos"], t_rescaled,
                               batch["obj"])
 
     def _batch(self, batch) -> Dict[str, torch.Tensor]:
@@ -98,12 +121,13 @@ class DynamicsTrainer:
     # -- steps ----------------------------------------------------------------
 
     def step(self, batch, t, noise) -> Dict[str, torch.Tensor]:
-        """One update on ``batch`` (dict of row tensors) with the given
-        timesteps and noise -> metrics (0-d tensors)."""
+        """One update on ``batch`` (dict of row tensors; with a dp mesh,
+        this rank's block) with the given timesteps and noise -> metrics
+        (0-d tensors; global-batch means)."""
         batch = self._batch(batch)
         self.model.train()
         noisy, tr = self._inputs(batch, t, noise)
-        pred = self._forward(batch, noisy, tr)
+        pred = self._forward(batch, noisy, tr, self.net)
         loss = torch.mean((pred - batch["score"]) ** 2)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -111,26 +135,28 @@ class DynamicsTrainer:
         self.lr_sched.step()
         self.step_count += 1
         pred = pred.detach()
-        return {"loss": loss.detach(),
-                **self.class_accuracy(pred, batch["score"])}
+        return mean_over_dp(self.mesh, {
+            "loss": loss.detach(),
+            **self.class_accuracy(pred, batch["score"])})
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         batch = self._batch(batch)
-        return self.step(batch, *self.draw(*batch["ctrl"].shape))
+        return self.step(batch, *self._draw_block(*batch["ctrl"].shape))
 
     @torch.no_grad()
     def eval_step(self, batch, t=None, noise=None) -> Dict[str, torch.Tensor]:
         """Eval-mode loss and accuracies; t and noise drawn when not given."""
         batch = self._batch(batch)
         if t is None:
-            t, noise = self.draw(*batch["ctrl"].shape)
+            t, noise = self._draw_block(*batch["ctrl"].shape)
         noisy, tr = self._inputs(batch, t, noise)
         was = self.model.training
         self.model.eval()
         pred = self._forward(batch, noisy, tr)
         self.model.train(was)
         loss = torch.mean((pred - batch["score"]) ** 2)
-        return {"loss": loss, **self.class_accuracy(pred, batch["score"])}
+        return mean_over_dp(self.mesh, {
+            "loss": loss, **self.class_accuracy(pred, batch["score"])})
 
     def class_accuracy(self, pred, score) -> Dict[str, torch.Tensor]:
         """3-class accuracy per axis (dynamics/main.py:151-153, vectorized)."""

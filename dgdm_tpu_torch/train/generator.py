@@ -10,6 +10,11 @@ decay ``clamp(1 - (1 + step)^(-power), 0, 0.9999)``, power 0.85
 increment. As in ``train/dynamics.py``, ``draw`` takes t and the noise from
 the trainer's ``torch.Generator`` and ``step`` takes them as arguments.
 
+With a dp ``mesh`` the UNet trains under ``DistributedDataParallel`` on
+this rank's block of the global batch, every rank drawing the global
+batch's t and noise and keeping its block (``train/dynamics.py``); the EMA
+steps identically on every rank and the metrics are global-batch means.
+
 ``sample`` / ``sample_trajectory`` are unguided DDIM from noise with a given
 denoiser (the trainer passes its EMA copy; ``cli/sample.py`` a loaded one).
 """
@@ -24,6 +29,11 @@ import torch
 from dgdm_tpu_torch.core.config import DIFFUSION
 from dgdm_tpu_torch.diffusion import ddim
 from dgdm_tpu_torch.models.unet1d import ConditionalUnet1D
+from dgdm_tpu_torch.parallel.mesh import (
+    global_draw,
+    mean_over_dp,
+    wrap_data_parallel,
+)
 from dgdm_tpu_torch.train.data import to_device
 from dgdm_tpu_torch.train.schedule import adam, cosine_lr
 
@@ -92,9 +102,14 @@ class GeneratorTrainer:
         warmup_steps: int = 0,
         device="cuda",
         seed: int = 0,
+        mesh=None,
     ):
         self.device = torch.device(device)
         self.model = (model or ConditionalUnet1D()).to(self.device)
+        self.mesh = mesh
+        # the module that trains: DDP over the dp group, or the model; the
+        # EMA copies the parameters after DDP has broadcast rank 0's
+        self.net = wrap_data_parallel(mesh, self.model, self.device)
         self.ema = copy.deepcopy(self.model).requires_grad_(False).eval()
         self.sched = ddim.make_schedule(num_train_timesteps)
         self.num_train_timesteps = num_train_timesteps
@@ -113,16 +128,23 @@ class GeneratorTrainer:
                             device=self.device)
         return t, noise
 
+    def _draw_block(self, shape):
+        """This rank's block of the global batch's draws (all of them
+        without a dp mesh)."""
+        return global_draw(self.mesh, shape[0],
+                           lambda n: self.draw((n,) + tuple(shape[1:])))
+
     def _batch(self, batch) -> torch.Tensor:
         return batch if torch.is_tensor(batch) else to_device(batch,
                                                               self.device)
 
     def step(self, batch, t, noise) -> Dict[str, torch.Tensor]:
         """One update on ``batch`` (B, L, 1) normalized control-point y
-        values with the given timesteps and noise, then the EMA step."""
+        values (with a dp mesh, this rank's block) with the given timesteps
+        and noise, then the EMA step."""
         batch = self._batch(batch)
         noisy = ddim.add_noise(self.sched, batch, noise, t)
-        loss = torch.mean((self.model(noisy, t) - noise) ** 2)
+        loss = torch.mean((self.net(noisy, t) - noise) ** 2)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         self.opt.step()
@@ -135,19 +157,21 @@ class GeneratorTrainer:
             torch._foreach_add_(ema, torch._foreach_mul(
                 list(self.model.parameters()), float(1.0 - decay)))
         self.step_count += 1
-        return {"loss": loss.detach(), "ema_decay": decay}
+        return {**mean_over_dp(self.mesh, {"loss": loss.detach()}),
+                "ema_decay": decay}
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         batch = self._batch(batch)
-        return self.step(batch, *self.draw(batch.shape))
+        return self.step(batch, *self._draw_block(batch.shape))
 
     @torch.no_grad()
     def eval_step(self, batch, t=None, noise=None) -> Dict[str, torch.Tensor]:
         batch = self._batch(batch)
         if t is None:
-            t, noise = self.draw(batch.shape)
+            t, noise = self._draw_block(batch.shape)
         noisy = ddim.add_noise(self.sched, batch, noise, t)
-        return {"loss": torch.mean((self.model(noisy, t) - noise) ** 2)}
+        return mean_over_dp(self.mesh, {
+            "loss": torch.mean((self.model(noisy, t) - noise) ** 2)})
 
     @torch.no_grad()
     def recon_metrics(self, batch, noise=None,
@@ -165,8 +189,9 @@ class GeneratorTrainer:
         validation numbers depend on it."""
         batch = self._batch(batch)
         if noise is None:
-            noise = torch.randn(tuple(batch.shape), generator=self.rng,
-                                device=self.device)
+            noise, = global_draw(self.mesh, batch.shape[0], lambda n: (
+                torch.randn((n,) + tuple(batch.shape[1:]), generator=self.rng,
+                            device=self.device),))
         t_noise = torch.full((batch.shape[0],), num_inference_steps,
                              dtype=torch.int64, device=self.device)
         x = ddim.add_noise(self.sched, batch, noise, t_noise)
@@ -176,12 +201,12 @@ class GeneratorTrainer:
                           lambda eps: step_mses.append(
                               torch.mean((eps - noise) ** 2))):
             pass
-        return {
+        return mean_over_dp(self.mesh, {
             "noise_pred_loss": torch.stack(step_mses).mean(),
             "denoise_loss": torch.mean((x - batch) ** 2),
             "accuracy": torch.mean((torch.abs(x - batch) < 0.01)
                                    .to(torch.float32)),
-        }
+        })
 
     def sample(self, noise,
                num_inference_steps: int = DIFFUSION.num_inference_steps):

@@ -142,3 +142,27 @@ def test_calib_and_constants_equal():
     assert rollout2d.LANE == pallas2d.LANE
     assert rollout2d.EPS_SETTLED == pallas2d.EPS_SETTLED
     assert teng.NEWTON_ITERS == pallas2d.NEWTON_KERNEL_ITERS
+
+
+@pytest.mark.parametrize("fingers_3d", [False, True])
+def test_fast_sample_y_shape_range_seed(fingers_3d):
+    """The on-device batch sampler: JAX's shape, dtype and range, and the
+    same values from the same seed. Neither package promises one stream
+    for the two: torch's generator is not JAX's PRNG, so no value is
+    compared with ``dgdm_tpu.geom.fingers.fast_sample_y``'s."""
+    g = tcfg.GRIPPER_3D if fingers_3d else tcfg.GRIPPER_2D
+    ref = jfingers.fast_sample_y(jax.random.PRNGKey(0), 64, fingers_3d)
+
+    def draw(seed):
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        return tfingers.fast_sample_y(gen, 64, fingers_3d, device="cpu")
+
+    y = draw(3)
+    assert y.shape == ref.shape == (64, 2, g.num_ctrl)
+    assert y.dtype == torch.float32 and str(ref.dtype) == "float32"
+    assert y.device.type == "cpu"
+    assert float(y.min()) >= g.ctrl_y_min and float(y.max()) <= g.ctrl_y_max
+    # spread over the range, not a constant
+    assert float(y.max() - y.min()) > 0.9 * (g.ctrl_y_max - g.ctrl_y_min)
+    assert torch.equal(draw(3), y)
+    assert not torch.equal(draw(4), y)
