@@ -146,7 +146,26 @@ Phases, each printing its own lines:
     NCCL group: one all-reduce and one step of a DDP-wrapped
     ``DynamicsTrainer``. A rank that fails to start, launch or agree fails
     the phase;
-13. times and the summary.
+13. the render path, the device part of ``cli.sample --render_video``
+    (whose writers, matplotlib and imageio, this host lacks): (a) the
+    denoise trajectory at phase 4's shape (``train/generator.
+    sample_trajectory``, B 16, UNet (128, 256), 5 DDIM steps, TF32 off),
+    its last row bitwise ``generator.sample``'s and within 1e-5 of the CPU;
+    (b) phase 4's 6 design pairs (its best-success grippers, 3 objectives x
+    2 objects) through ``cli.sample.render_inputs`` as one batched 2D trace
+    on the card, 2,000 steps (cut from the CLI's 8,000), every 20, regrasp
+    every 200: seconds, ms and CUDA kernels a step, the card's busy share
+    (``torch.profiler``), the projected seconds at 8,000 steps; the object
+    turned; each pair's first 400 steps against the pair traced alone on
+    the card, and against a batched CPU trace, within 1e-4 rad and 1e-5 m
+    (``scripts/probe_trace_chaos.py``); (c) their frames (100 x 128 x 128
+    x 3, uint8, the four colours, the object and both fingers in frame 0)
+    and silhouettes on the host, timed; (d) phase 7's 3 design pairs as one
+    batched 3D trace, 800 steps, every 20: unit quaternions, each pair
+    against itself alone within the same bars, finite scene points;
+    (e) the files the writers make, and the CPU tests that write and check
+    them. No kernel launches in this phase;
+14. times and the summary.
 
 Each kernel has one thread layout (K1 16 threads a rollout, K2 32; a
 128-pose group is a cluster of 8 blocks) and holds each thread's per-point
@@ -170,6 +189,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -605,6 +625,11 @@ def phases_3d(dev, clock: PhaseClock) -> dict:
         check(n_samples == 5, f"5 sample files, found {n_samples}")
         shutil.copy(os.path.join(save_dir, "guided_report.json"),
                     os.path.join(OUT_DIR, "guided_report_3d.json"))
+        # phase 13 renders the loop's best-success grippers
+        render_pairs_3d = design_pairs(report, save_dir,
+                                       {"mug_small": (verts, faces)}, True)
+        check(len(render_pairs_3d) == 3,
+              f"3 design pairs, found {len(render_pairs_3d)}")
         # where one verification call of the loop spends its time: the
         # guided shift_up samples once more, the whole call on the host
         # clock, and its K2 launch with CUDA events
@@ -639,7 +664,8 @@ def phases_3d(dev, clock: PhaseClock) -> dict:
     clock.done("7")
     out["travel"] = travel_step_us(rollout3d, arrs16, eposes, (25, 26),
                                    (9, 10))
-    out.update(design_loop_s=design_s, launches=launches,
+    out.update(render_pairs=render_pairs_3d,
+               design_loop_s=design_s, launches=launches,
                design_sweep_s=report["design_sweep"]["seconds"],
                verification_s=report["verification"]["seconds"],
                design_call={"seconds": call_s, "kernel_ms": call_k_ms,
@@ -1097,13 +1123,41 @@ def engine_vs_kernel(e, k, what: str, solver: str) -> dict:
     return st
 
 
+def step_profile(step, n: int = 10) -> dict:
+    """CUDA kernels a step and the card's busy share (summed device time
+    over the window's wall) of ``n`` calls of ``step`` under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        busy_us += dev_us
+        launches += e.count
+    return {"kernels_per_step": launches / n,
+            "busy_share": busy_us / (1e6 * wall) if busy_us else None,
+            "profiled_ms_per_step": 1e3 * wall / n}
+
+
 def pure_step_cost(dev, scenes, grid) -> dict:
     """The pure 3D engine's cost on the card at 8 pairs x 450 poses under
     each solver: ms a step (CUDA events over 5 steps after 2), and from a
     torch.profiler window of 10 steps the CUDA kernels a step and the card's
     busy share (their summed device time over the window's wall)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from dgdm_tpu_torch.sim import engine3d
     from dgdm_tpu_torch.sim.types import to_device
@@ -1117,32 +1171,16 @@ def pure_step_cost(dev, scenes, grid) -> dict:
     try:
         for solver in engine3d.SOLVERS3:
             engine3d.SOLVER3 = solver
-            state = engine3d.init_state(sc, pose)
+            state = [engine3d.init_state(sc, pose)]
+
+            def step():
+                state[0] = engine3d.step(sc, state[0], ctrl)
+                return state[0]
+
             for _ in range(2):
-                state = engine3d.step(sc, state, ctrl)
-            ms, state = timed_cuda(lambda: engine3d.step(sc, state, ctrl),
-                                   reps=5, warm=False)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(10):
-                    state = engine3d.step(sc, state, ctrl)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            busy_us, launches = 0.0, 0
-            for e in prof.key_averages():
-                if not str(e.device_type).endswith("CUDA"):
-                    continue
-                dev_us = getattr(e, "self_device_time_total", None)
-                if dev_us is None:
-                    dev_us = getattr(e, "self_cuda_time_total", 0.0)
-                busy_us += dev_us
-                launches += e.count
-            cost[solver] = {
-                "ms_per_step": ms, "kernels_per_step": launches / 10,
-                "busy_share": busy_us / (1e6 * wall) if busy_us else None,
-                "profiled_ms_per_step": 1e3 * wall / 10}
+                step()
+            ms, _ = timed_cuda(step, reps=5, warm=False)
+            cost[solver] = {"ms_per_step": ms, **step_profile(step)}
             print(f"  pure engine ({solver}) at 8 x 450 rollouts: "
                   f"{cost[solver]}", flush=True)
     finally:
@@ -2041,6 +2079,218 @@ def phase_multi_gpu(dev, card: str) -> dict:
     return out
 
 
+# the render path's trace bars (theta or quaternion components, and
+# positions and finger slides in m), from
+# ``JAX_PLATFORMS=cpu python scripts/probe_trace_chaos.py``: a 1-ulp change
+# of the initial orientation moves these traces by at most 2.62e-5 rad and
+# 8.6e-7 m (2D, 400 steps) and 9e-8 (3D, 800 steps)
+TRACE_ANGLE_BAR, TRACE_POS_BAR = 1e-4, 1e-5
+
+
+def design_pairs(report: dict, save_dir: str, objects: dict,
+                 fingers_3d: bool) -> list:
+    """The (objective, object) pairs of a ``cli.sample`` run as its
+    ``--render_video`` picks them (``cli.sample.render_pair``), from its
+    report and ``samples_*.npy``; ``objects`` maps each object id to its
+    contour (2D) or (verts, faces) mesh (3D)."""
+    from dgdm_tpu_torch.cli.sample import render_pair
+
+    return [render_pair(objective, oid, np.load(os.path.join(
+        save_dir, f"samples_{objective}_{oid}.npy")), te, objects[oid],
+        fingers_3d)
+        for objective, entry in report.items()
+        for oid, te in entry.get("objects", {}).items()]
+
+
+def trace_bars(what: str, out, ref, angle_cols, pos_cols) -> dict:
+    """Traces (pairs, rows, columns) within the render path's bars."""
+    err = np.abs(np.asarray(out, np.float64) - ref).reshape(
+        -1, out.shape[-1]).max(0)
+    ang, pos = float(err[angle_cols].max()), float(err[pos_cols].max())
+    check(ang <= TRACE_ANGLE_BAR and pos <= TRACE_POS_BAR,
+          f"{what}: max angle error {ang:.3g} (bar {TRACE_ANGLE_BAR}), "
+          f"position {pos:.3g} m (bar {TRACE_POS_BAR})")
+    print(f"  {what}: max angle error {ang:.3g} (bar {TRACE_ANGLE_BAR:g}), "
+          f"position and slides {pos:.3g} m (bar {TRACE_POS_BAR:g}); bitwise "
+          f"{bool(np.array_equal(out, ref))}", flush=True)
+    return {"angle": ang, "pos": pos, "bitwise": bool(np.array_equal(out,
+                                                                     ref))}
+
+
+def phase_render(dev, pairs2d: list, pairs3d: list) -> dict:
+    """Phase 13: the device part of ``cli.sample --render_video`` on the
+    card: (a) the denoise trajectory at phase 4's shape, (b) one batched 2D
+    trace of phase 4's design pairs through ``cli.sample.render_inputs``
+    (depth cut from 8,000 to 2,000 steps), (c) its frames and silhouettes on
+    the host, (d) one batched 3D trace of phase 7's pairs (800 steps), (e)
+    the writers' files and the CPU tests that hold them."""
+    import torch
+
+    from dgdm_tpu_torch.cli import sample as sample_cli
+    from dgdm_tpu_torch.eval import viz
+    from dgdm_tpu_torch.models.unet1d import ConditionalUnet1D
+    from dgdm_tpu_torch.sim import datagen, engine2d, engine3d
+    from dgdm_tpu_torch.sim.types import to_device
+    from dgdm_tpu_torch.train import generator
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # ---- (a) the denoise trajectory at phase 4's shape ---------------------
+    torch.manual_seed(0)
+    unet = ConditionalUnet1D(input_dim=1, down_dims=(128, 256))
+    noise = torch.as_tensor(np.random.RandomState(0).randn(16, 14, 1)
+                            .astype(np.float32))
+    unet_d = unet.to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, traj = generator.sample_trajectory(unet_d, noise.to(dev), 15, 5)
+    torch.cuda.synchronize()
+    traj_s = time.perf_counter() - t0
+    ref = generator.sample(unet_d, noise.to(dev), 15, 5)
+    check(traj.shape == (6, 16, 14, 1) and torch.equal(traj[-1], ref)
+          and torch.equal(last, ref),
+          "13 (a) the trajectory's last row is generator.sample's, bitwise")
+    cpu_traj = generator.sample_trajectory(unet.cpu(), noise, 15, 5)[1]
+    traj_err = float((traj.cpu() - cpu_traj).abs().max())
+    check(traj_err <= 1e-5, f"13 (a) card vs CPU {traj_err:.3g} > 1e-5")
+    print(f"13 (a) denoise trajectory B 16 x 14 x 5 DDIM steps, UNet (128, "
+          f"256), TF32 off: {traj_s * 1e3:.1f} ms; last row bitwise "
+          f"generator.sample's; card vs CPU {traj_err:.3g} (bar 1e-5)",
+          flush=True)
+    out["trajectory"] = {"seconds": traj_s, "card_vs_cpu": traj_err}
+
+    # ---- (b) the 2D traces of phase 4's design pairs -----------------------
+    steps, every, regrasp = 2000, 20, 200
+    full_steps = sample_cli.render_schedule(False)[0]
+    items, timing = sample_cli.render_inputs(pairs2d, False, dev, steps,
+                                             every, regrasp, grid_size=360)
+    tr = np.stack([it["trace"] for it in items])
+    check(tr.shape == (len(pairs2d), 100, 5) and np.isfinite(tr).all(),
+          f"13 (b) finite (6, 100, 5) traces: {tr.shape}")
+    turn = float(np.abs(tr[..., 2] - np.float32(math.pi)).max())
+    check(turn > 1e-2, f"13 (b) the object did not move (max |dtheta| "
+          f"{turn:.3g})")
+    ms2 = 1e3 * timing["trace_s"] / steps
+    n = len(pairs2d[0]["y"]) // 2
+    scenes = [engine2d.make_scene(p["y"][:n], p["y"][n:], p["object"])
+              for p in pairs2d]
+    pose = torch.tensor([0.0, 0.0, math.pi], device=dev)
+    sc = engine2d.expand_scene(to_device(datagen.stack_scenes(scenes), dev),
+                               1)
+    state = [engine2d.init_state(sc, pose[None])]
+    ctrl = engine2d._squeeze_ctrl(dev)
+
+    def step2():
+        state[0] = engine2d.step(sc, state[0], ctrl)
+
+    with torch.inference_mode():
+        prof2 = step_profile(step2)
+        t0 = time.perf_counter()
+        alone = np.stack([engine2d.rollout_trace(
+            to_device(s, dev), pose, steps=400, every=every,
+            regrasp_every=regrasp).cpu().numpy() for s in scenes])
+        alone_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_items, _ = sample_cli.render_inputs(pairs2d, False, "cpu", 400,
+                                            every, regrasp)
+    cpu_s = time.perf_counter() - t0
+    cpu_tr = np.stack([it["trace"] for it in cpu_items])
+    print(f"13 (b) 2D render traces: {len(pairs2d)} design pairs of phase 4 "
+          f"x {steps} steps (cut from {full_steps}), every {every}, regrasp "
+          f"every {regrasp}, one batched trace on the card: "
+          f"{timing['trace_s']:.2f}s, {ms2:.2f} ms a step; "
+          f"{prof2['kernels_per_step']:.0f} CUDA kernels a step, the card "
+          f"busy {prof2['busy_share']} (torch.profiler, 10 steps); "
+          f"{full_steps} steps projected {ms2 * full_steps / 1e3:.1f}s; max "
+          f"|theta - pi| {turn:.4f}", flush=True)
+    print(f"  the checks' own traces: each pair alone x 400 steps "
+          f"{alone_s:.2f}s on the card, the batched CPU trace x 400 steps "
+          f"{cpu_s:.2f}s", flush=True)
+    rows = 400 // every
+    batched_vs_alone = trace_bars(
+        "13 (b) batched vs each pair alone on the card, 400 steps",
+        tr[:, :rows], alone, [2], [0, 1, 3, 4])
+    card_vs_cpu = trace_bars("13 (b) card vs a batched CPU trace, 400 steps",
+                             tr[:, :rows], cpu_tr, [2], [0, 1, 3, 4])
+    out["trace_2d"] = {"pairs": len(pairs2d), "steps": steps,
+                       "seconds": timing["trace_s"], "ms_per_step": ms2,
+                       "projected_s_full_depth": ms2 * full_steps / 1e3,
+                       "max_turn": turn, **prof2, "alone_s": alone_s,
+                       "cpu_s": cpu_s,
+                       "batched_vs_alone": batched_vs_alone,
+                       "card_vs_cpu": card_vs_cpu}
+
+    # ---- (c) frames and silhouettes on the host ----------------------------
+    colours = {tuple(c) for c in viz.FRAME_COLORS}
+    for it in items:
+        fr = it["frames"]
+        check(fr.shape == (100, 128, 128, 3) and fr.dtype == np.uint8,
+              f"13 (c) frames {fr.shape} {fr.dtype}")
+        seen = {tuple(c) for c in np.unique(fr.reshape(-1, 3), axis=0)}
+        first = {tuple(c) for c in np.unique(fr[0].reshape(-1, 3), axis=0)}
+        check(seen <= colours and first == colours,
+              "13 (c) frames use the four colours, frame 0 shows the object "
+              "and both fingers")
+        check(it["silhouettes"].shape == (10, 128, 128)
+              and it["silhouettes"].any(), "13 (c) silhouettes")
+    n_frames = sum(len(it["frames"]) for it in items)
+    print(f"13 (c) frames and silhouettes on the host: {n_frames} frames of "
+          f"128 x 128 and {len(items)} x 10 silhouettes, scenes included, "
+          f"{timing['host_s']:.2f}s ({1e3 * timing['host_s'] / n_frames:.1f} "
+          f"ms a frame)", flush=True)
+    out["frames"] = {"frames": n_frames, "host_s": timing["host_s"]}
+
+    # ---- (d) the 3D traces of phase 7's design pairs -----------------------
+    steps3, every3, _ = sample_cli.render_schedule(True)
+    items3, timing3 = sample_cli.render_inputs(pairs3d, True, dev, steps3,
+                                               every3)
+    tr3 = np.stack([it["trace"] for it in items3])
+    check(tr3.shape == (len(pairs3d), 40, 9) and np.isfinite(tr3).all(),
+          f"13 (d) finite (40, 9) traces: {tr3.shape}")
+    qerr = float(np.abs(np.linalg.norm(tr3[..., 3:7], axis=-1) - 1).max())
+    check(qerr <= 1e-4, f"13 (d) quaternion norms off by {qerr:.3g}")
+    pose3 = torch.tensor([0.0, 0.0, 0.7], device=dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        alone3 = np.stack([engine3d.rollout_trace3d(to_device(
+            engine3d.with_hgrid(engine3d.make_scene(
+                p["y"][:21], p["y"][21:], *p["object"])), dev), pose3,
+            steps=steps3, every=every3).cpu().numpy() for p in pairs3d])
+    alone3_s = time.perf_counter() - t0
+    for p, it in zip(pairs3d, items3):
+        for row in it["trace"][[0, -1]]:
+            sets = viz.scene_points_3d(it["points"], it["com"], p["y"][:21],
+                                       p["y"][21:], row)
+            check(all(np.isfinite(s).all() for s in sets),
+                  "13 (d) finite scene points")
+    ms3 = 1e3 * timing3["trace_s"] / steps3
+    print(f"13 (d) 3D render traces: {len(pairs3d)} design pairs of phase 7 "
+          f"x {steps3} steps, every {every3}, one batched trace on the card: "
+          f"{timing3['trace_s']:.2f}s, {ms3:.2f} ms a step (scenes and "
+          f"height grids {timing3['host_s']:.2f}s on the host); quaternion "
+          f"norms within {qerr:.3g} of 1; scene points finite; each pair "
+          f"alone {alone3_s:.2f}s", flush=True)
+    b3 = trace_bars("13 (d) batched vs each pair alone on the card, 800 steps",
+                    tr3, alone3, [3, 4, 5, 6], [0, 1, 2, 7, 8])
+    out["trace_3d"] = {"pairs": len(pairs3d), "steps": steps3,
+                       "seconds": timing3["trace_s"], "ms_per_step": ms3,
+                       "quat_norm_err": qerr, "alone_s": alone3_s,
+                       "host_s": timing3["host_s"], "batched_vs_alone": b3}
+
+    # ---- (e) the writers ---------------------------------------------------
+    print("13 (e) writers (matplotlib, imageio; not on this host): "
+          "denoise_steps.npy/.png; per pair 2D {objective}_{oid}_gripper.png, "
+          "_profile.png, _final.png, _silhouettes.npy, _rollout.mp4 (.gif "
+          "without an mp4 backend); 3D _scene.png, _profile.png, "
+          "_rollout.mp4 (_rollout_final.png without one). Written and checked "
+          "on the CPU by tests/test_torch_sample_cli_render.py and "
+          "tests/test_torch_viz.py", flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2267,12 +2517,18 @@ def main() -> int:
                 n_samples += 1
         check(n_samples == 8, f"8 sample files, found {n_samples}")
         shutil.copy(os.path.join(save_dir, "guided_report.json"), OUT_DIR)
+        # phase 13 renders the loop's best-success grippers
+        oids, ocontours = sample_cli.load_test_objects(
+            argparse.Namespace(num_test_objects=2, object_dir=""))
+        render_pairs_2d = design_pairs(
+            report, save_dir, dict(zip(map(str, oids), ocontours)), False)
+        check(len(render_pairs_2d) == 6,
+              f"6 design pairs, found {len(render_pairs_2d)}")
 
         # where one verification call of the loop spends its time: the
         # guided shift_up samples of the first object once more, the whole
         # call on the host clock and its K1 launch with CUDA events
-        oids, ocontours = sample_cli.load_test_objects(
-            argparse.Namespace(num_test_objects=1, object_dir=""))
+        oids, ocontours = oids[:1], ocontours[:1]
         samp = np.load(os.path.join(
             save_dir, f"samples_shift_up_{oids[0]}.npy"))[..., 0]
         torch.cuda.synchronize()
@@ -2303,6 +2559,7 @@ def main() -> int:
 
     clock.done("4")
     k2 = phases_3d(dev, clock)
+    render_pairs_3d = k2.pop("render_pairs")
 
     # ---- 8. a settled-travel step ----------------------------------------
     k1_travel = travel_step_us(rollout2d, arrs16, eposes, (14, 15), (6, 7))
@@ -2342,7 +2599,13 @@ def main() -> int:
     multi = phase_multi_gpu(dev, card)
     clock.done("12")
 
-    # ---- 13. summary ------------------------------------------------------
+    # ---- 13. the render path: cli.sample --render_video's device part -----
+    engine2d.SOLVER = "newton"
+    engine3d.SOLVER3 = "newton"
+    render = phase_render(dev, render_pairs_2d, render_pairs_3d)
+    clock.done("13")
+
+    # ---- summary ----------------------------------------------------------
     summary = {
         "card": card, "build_s": build_s, "registers": registers,
         "travel_k1": k1_travel,
@@ -2363,7 +2626,7 @@ def main() -> int:
         "design_call": {"seconds": call_s, "kernel_ms": call_k_ms,
                         "full_steps_per_block": call_full},
         "k2": k2, "train_path": train, "jacobi": jac, "solvers_3d": s3,
-        "multi_gpu": multi, "phase_s": clock.seconds,
+        "multi_gpu": multi, "render": render, "phase_s": clock.seconds,
         "seconds": time.perf_counter() - t_start,
     }
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:

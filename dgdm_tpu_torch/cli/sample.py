@@ -11,8 +11,17 @@ through ``sim/rollout2d.py``; ``--fingers_3d``: 32,000 steps through
 Checkpoints are the directories that the training CLIs write
 (``ckpt/best``, ``ckpt/last``, ...; ``train/checkpoints.py``) or the
 ``.npz`` files of ``models/convert.py`` (a flax tree carried across, or a
-state_dict saved by the port). ``--render_video`` waits for a later slice of
-the port.
+state_dict saved by the port).
+
+``--render_video`` adds the JAX package's imagery: the denoise trajectory
+(``denoise_steps.npy`` / ``.png``) and, for the best-success gripper of each
+(objective, object) pair, its portrait, profile and final-orientation
+plots, object silhouettes and a squeeze video (2D), or a scene render, a
+profile plot and a squeeze video (3D; the final frame as a still without an
+mp4 backend). The pairs' squeezes run as ONE batched trace of the pure
+engine on the CLI's device after the objective loop (``render_inputs``),
+where the JAX package traces pair by pair. The writers need matplotlib and
+imageio: without them the flag fails before any sampling.
 
 Over N GPUs, start N processes with the environment contract of
 ``parallel/distributed.py`` (one process a GPU): with more than one rank
@@ -34,7 +43,9 @@ Examples:
 
 from __future__ import annotations
 
+import importlib
 import json
+import math
 import os
 import time
 
@@ -46,6 +57,7 @@ from dgdm_tpu_torch.core.config import (
     GUIDED_OBJECTIVES,
     ICON_TEST_OBJECT_IDS,
     NORM,
+    SIM,
 )
 from dgdm_tpu_torch.core.flags import build_parser
 from dgdm_tpu_torch.design.guidance import GuidedSampler
@@ -53,6 +65,7 @@ from dgdm_tpu_torch.eval.metrics import average_objectives, best_ids_all_metrics
 from dgdm_tpu_torch.eval.simeval import objectives_table, sim_eval_batch_2d
 from dgdm_tpu_torch.eval.simeval3d import sim_eval_batch_3d
 from dgdm_tpu_torch.geom.contour import extract_contours, load_icon, synthetic_icon
+from dgdm_tpu_torch.geom.fingers import denormalize_y
 from dgdm_tpu_torch.models import convert
 from dgdm_tpu_torch.parallel.distributed import (
     maybe_initialize_distributed,
@@ -60,6 +73,8 @@ from dgdm_tpu_torch.parallel.distributed import (
     world_size,
 )
 from dgdm_tpu_torch.parallel.mesh import make_mesh
+from dgdm_tpu_torch.sim import datagen, engine2d, engine3d
+from dgdm_tpu_torch.sim.types import to_device
 from dgdm_tpu_torch.train import generator
 
 
@@ -109,10 +124,142 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def require_writers() -> None:
+    """Raise ImportError naming the first writer package that
+    ``--render_video`` needs and this host lacks."""
+    for pkg in ("matplotlib", "imageio"):
+        try:
+            importlib.import_module(pkg)
+        except ImportError as e:
+            raise ImportError(
+                f"--render_video writes its images and videos with {pkg}, "
+                f"which is not installed") from e
+
+
+def render_schedule(fingers_3d: bool, eval_steps: int = 0):
+    """(steps, every, regrasp_every) of the render traces: the JAX CLI's
+    2D trace (8,000 steps, 100 rows, the verification's regrasp) and 3D
+    trace (800 steps, 40 rows, no regrasp), ``eval_steps`` overriding the
+    depth as it does for verification."""
+    if fingers_3d:
+        steps = eval_steps or SIM.steps_3d
+        return steps, max(1, steps // 40), 0
+    steps = eval_steps or SIM.eval_steps_2d
+    regrasp = max(1, eval_steps // 2) if eval_steps else SIM.eval_regrasp_2d
+    return steps, max(1, steps // 100), regrasp
+
+
+def render_pair(objective: str, oid, samples: np.ndarray, entry: dict, obj,
+                fingers_3d: bool, metrics=None) -> dict:
+    """What ``--render_video`` draws for one (objective, object) pair: the
+    best-success sample of ``samples`` (B, L, 1) by the pair's table entry
+    (``entry["best_ids"]``), denormalized, beside the object (2D: contour;
+    3D: (verts, faces)) and that sample's metrics row."""
+    bi = int(entry["best_ids"].get("success_rate", 0))
+    return {"objective": objective, "oid": oid,
+            "y": np.asarray(denormalize_y(samples[bi, :, 0],
+                                          fingers_3d=fingers_3d)),
+            "object": obj,
+            "metrics": None if metrics is None else metrics[bi]}
+
+
+def render_inputs(pairs, fingers_3d: bool, device, steps: int, every: int,
+                  regrasp_every: int = 0, grid_size: int = SIM.grid_size):
+    """The device part of ``--render_video`` and what the writers consume.
+
+    ``pairs``: dicts with ``y`` (the gripper's denormalized control values,
+    left then right finger) and ``object`` (2D: the (N, 2) contour; 3D: the
+    (verts, faces) mesh). Every pair's squeeze runs as one batched trace of
+    the pure engine on ``device``, scenes stacked as ``sim/datagen.py``
+    stacks them (``expand_scene`` / ``expand_scene3`` against one shared
+    pose, the 3D height grids baked per pair before stacking), rows of steps
+    0, every, 2 * every, ... as ``rollout_trace`` records them: 2D from pose
+    (0, 0, pi), 3D from (0, 0, 0.7). On the host, per pair: 2D the video's
+    frames (``viz.rollout_frames_2d``, one a row) and the object's
+    silhouettes at every ``grid_size // 10``-th orientation of the
+    verification grid; 3D the scene's points and COM.
+
+    Returns (per-pair dicts with ``trace`` (T, 5 or 9) and the items above,
+    {"trace_s": seconds of the batched trace, synchronized, "host_s": host
+    seconds of the rest})."""
+    from dgdm_tpu_torch.eval import viz
+
+    device = torch.device(device)
+    n = len(pairs[0]["y"]) // 2
+    t0 = time.perf_counter()
+    if fingers_3d:
+        scenes = [engine3d.with_hgrid(engine3d.make_scene(
+            p["y"][:n], p["y"][n:], *p["object"])) for p in pairs]
+        stacked = engine3d.expand_scene3(
+            to_device(datagen.stack_scenes(scenes), device), 1)
+        pose = torch.tensor([[0.0, 0.0, 0.7]], dtype=torch.float32,
+                            device=device)
+        trace_fn = engine3d.rollout_trace3d
+    else:
+        scenes = [engine2d.make_scene(p["y"][:n], p["y"][n:], p["object"])
+                  for p in pairs]
+        stacked = engine2d.expand_scene(
+            to_device(datagen.stack_scenes(scenes), device), 1)
+        pose = torch.tensor([[0.0, 0.0, math.pi]], dtype=torch.float32,
+                            device=device)
+        trace_fn = engine2d.rollout_trace
+    bake_s = time.perf_counter() - t0
+    _sync(device)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        traces = trace_fn(stacked, pose, steps=steps, every=every,
+                          regrasp_every=regrasp_every)[:, 0]
+    _sync(device)
+    trace_s = time.perf_counter() - t0
+    traces = traces.cpu().numpy()
+    t0 = time.perf_counter()
+    out = []
+    for p, scene, tr in zip(pairs, scenes, traces):
+        item = {"trace": tr}
+        if fingers_3d:
+            item["points"] = scene.points.numpy()
+            item["com"] = scene.com.numpy()
+        else:
+            item["frames"] = viz.rollout_frames_2d(
+                p["object"], p["y"][:n], p["y"][n:], tr, stride=1)
+            sil_th = np.linspace(-1.0, 1.0, grid_size) * np.pi + np.pi
+            item["silhouettes"] = np.stack([
+                viz.render_object_silhouette(p["object"], float(th))
+                for th in sil_th[:: max(1, grid_size // 10)]])
+        out.append(item)
+    host_s = bake_s + time.perf_counter() - t0
+    return out, {"trace_s": trace_s, "host_s": host_s}
+
+
+def write_renders(save_dir: str, pairs, items, fingers_3d: bool) -> None:
+    """Per pair, the JAX CLI's files under ``{objective}_{oid}``: 2D
+    ``_gripper.png``, ``_profile.png``, ``_final.png``,
+    ``_silhouettes.npy`` and ``_rollout.mp4`` (``.gif`` without an mp4
+    backend); 3D ``_scene.png``, ``_profile.png`` and ``_rollout.mp4`` (or
+    ``_rollout_final.png``)."""
+    from dgdm_tpu_torch.eval import viz
+
+    for p, item in zip(pairs, items):
+        stem = os.path.join(save_dir, f"{p['objective']}_{p['oid']}")
+        y, m = p["y"], p["metrics"]
+        n = len(y) // 2
+        viz.visualize_profile(m["profile"] - 1, stem + "_profile.png")
+        if fingers_3d:
+            viz.render_scene_3d(item["points"], item["com"], y[:n], y[n:],
+                                item["trace"][0], stem + "_scene.png")
+            viz.rollout_video_3d(item["points"], item["com"], y[:n], y[n:],
+                                 item["trace"], stem + "_rollout.mp4")
+        else:
+            viz.render_gripper_2d(y[:n], y[n:], stem + "_gripper.png")
+            viz.visualize_finals(m["final_theta"], stem + "_final.png")
+            np.save(stem + "_silhouettes.npy", item["silhouettes"])
+            viz.write_video(item["frames"], stem + "_rollout.mp4")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.render_video:
-        raise NotImplementedError("--render_video is not ported yet")
+        require_writers()
     maybe_initialize_distributed()
     writer = rank() == 0
     f3d = args.fingers_3d
@@ -200,8 +347,22 @@ def main(argv=None):
     rs = np.random.RandomState(args.seed)
     noise = torch.as_tensor(rs.randn(b, args.ctrlpts_dim, 1).astype(np.float32),
                             device=device)
-    unguided = generator.sample(unet, noise, args.num_train_timesteps,
-                                args.num_inference_steps)
+    if args.render_video:
+        # per-step denoising snapshots (the reference dumps the sample
+        # scatter at every DDIM step, diffusion.py:258-292); the last row
+        # is generator.sample's result
+        unguided, traj = generator.sample_trajectory(
+            unet, noise, args.num_train_timesteps, args.num_inference_steps)
+        if writer:
+            from dgdm_tpu_torch.eval import viz
+
+            traj = traj.cpu().numpy()
+            np.save(os.path.join(args.save_dir, "denoise_steps.npy"), traj)
+            viz.visualize_denoise_steps(
+                traj, os.path.join(args.save_dir, "denoise_steps.png"))
+    else:
+        unguided = generator.sample(unet, noise, args.num_train_timesteps,
+                                    args.num_inference_steps)
 
     # unguided baseline: sim-evaluate once per test object, reused by the
     # guided-vs-unguided table of every objective
@@ -211,6 +372,9 @@ def main(argv=None):
     thr0 = NORM.threshold_std(f3d)[0]
     objectives = ([o for o in args.objectives.split(",") if o]
                   if args.objectives else list(GUIDED_OBJECTIVES))
+    # --render_video: the best-success gripper of every (objective, object)
+    # pair, rendered after the loop
+    render_pairs = []
     # fused design sweep: every (objective, object) pair except convergence
     sweep_samples = {}
     sweep_names = [o for o in objectives if o != "convergence"]
@@ -239,10 +403,15 @@ def main(argv=None):
                     noise, obj_flats[oi], objective,
                     GUIDANCE.scale(f3d, objective), centers=centers)
             metrics = sim_eval(samples, oi)
+            te = table_entry(metrics, objective)
             per_object[str(oid)] = {
-                **table_entry(metrics, objective),
+                **te,
                 "unguided": table_entry(unguided_metrics[oi], objective),
             }
+            if args.render_video and writer:
+                render_pairs.append(render_pair(
+                    objective, oid, samples.detach().cpu().numpy(), te,
+                    meshes[oi] if f3d else contours[oi], f3d, metrics))
             if writer:
                 np.save(os.path.join(args.save_dir,
                                      f"samples_{objective}_{oid}.npy"),
@@ -268,6 +437,14 @@ def main(argv=None):
         report[objective] = entry
         if writer:
             print(f"objective {objective} done", flush=True)
+    if render_pairs:
+        steps, every, regrasp = render_schedule(f3d, args.eval_steps)
+        items, timing = render_inputs(render_pairs, f3d, device, steps, every,
+                                      regrasp, grid_size=args.grid_size)
+        write_renders(args.save_dir, render_pairs, items, f3d)
+        print(f"render: {len(render_pairs)} pairs traced together over "
+              f"{steps} steps in {timing['trace_s']:.2f}s on {device}",
+              flush=True)
     if sweep_names:
         report["design_sweep"] = {"pairs": len(s_labels),
                                   "seconds": sweep_seconds}
