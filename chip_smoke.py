@@ -104,13 +104,16 @@ Phases, each printing its own lines:
     ``profile_pairs_3d`` at the datagen shape (8 x 9,088 x 800, the Jacobi
     calibration), held within the bars of
     tests/fixtures/rollout3d_jacobi_golden.npz and bitwise against its
-    plain version over all 800 steps; its bound from
-    ``k2_jacobi_flops``; (b) the verification shape through
-    ``sim_eval_batch_3d`` (16 x 45 padded to 128 x 32,000, regrasp and
-    snapshot at 800): one Jacobi launch, the snapshot bitwise against the
-    kernel's own 800-step squeeze, the depth cut to 1,000 steps bitwise
-    against the plain version; (c) K2's adaptive-Newton instantiation
-    (``newton_iters`` 6, ``newton_tol`` 1e-4) through
+    plain version over all 800 steps; the kernel timed in 3 calls (their
+    spread printed) beside the earlier design's time, its bound from
+    ``k2_jacobi_flops`` and its share of it; (b) the verification shape
+    through ``sim_eval_batch_3d`` (16 x 45 padded to 128 x 32,000, regrasp
+    and snapshot at 800): one Jacobi launch, the kernel beside the earlier
+    design's time and its share of the bound, again at 15 grippers (the
+    16th cluster's second wave) with the clusters resident, the snapshot
+    bitwise against the kernel's own 800-step squeeze, the depth cut to
+    1,000 steps bitwise against the plain version; (c) K2's adaptive-Newton
+    instantiation (``newton_iters`` 6, ``newton_tol`` 1e-4) through
     ``rollout3d.profile_batch`` at the datagen shape, bitwise against its
     plain version over all 800 steps and within its golden
     fixture's bars, the iterations a full step per block beside the fixed
@@ -283,10 +286,11 @@ def timed_cuda(fn, reps: int, warm: bool = True):
 def ptxas_report(name: str, lib, n_kernels: int = 1) -> dict:
     """Print registers and spill bytes of each kernel in the log of the
     build this run made (``nvcc -Xptxas -v``); spills must be 0. Returns
-    the registers a thread of each entry function, by its mangled name."""
+    (registers a thread, spill bytes stored and loaded) of each entry
+    function, by its mangled name."""
     import re
 
-    regs, entries = [], []
+    regs, spills, entries = [], [], []
     for line in lib.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -295,6 +299,7 @@ def ptxas_report(name: str, lib, n_kernels: int = 1) -> dict:
                       line)
         if m:
             print(f"  {name}: {line.strip()}", flush=True)
+            spills.append(int(m.group(1)) + int(m.group(2)))
             check(m.group(1) == "0" and m.group(2) == "0",
                   f"{name} spills registers: {line.strip()}")
         m = re.search(r"Used (\d+) registers", line)
@@ -302,10 +307,10 @@ def ptxas_report(name: str, lib, n_kernels: int = 1) -> dict:
             regs.append(int(m.group(1)))
             print(f"  {name} ({entries[-1] if entries else '?'}): "
                   f"{line.strip()}", flush=True)
-    check(len(regs) == n_kernels == len(entries),
+    check(len(regs) == n_kernels == len(entries) == len(spills),
           f"{name}: expected {n_kernels} kernel(s) in the build log, found "
-          f"entries {entries}, registers {regs}")
-    return dict(zip(entries, regs))
+          f"entries {entries}, registers {regs}, spills {spills}")
+    return dict(zip(entries, zip(regs, spills)))
 
 
 def bitwise(what: str, res, ref, planes) -> None:
@@ -780,6 +785,7 @@ def phase_jacobi_design(dev) -> dict:
                                 device=dev)
         dg_ms, res = timed_cuda(lambda: rollout2d.rollout(*arrs8, poses),
                                 reps=5)
+        dg_plan = dict(rollout2d.LAST_PLAN)
         plan = chosen(rollout2d)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1008,7 +1014,7 @@ def phase_jacobi_design(dev) -> dict:
                   f"{cost[solver]}", flush=True)
         out = {"datagen": {"kernel_ms": dg_ms, "plain_ms": dg_plain_ms,
                            "bound_ms": dg_bound, "bound_by": dg_bound_by,
-                           "parity": stats,
+                           "parity": stats, "plan": dg_plan,
                            "full_steps_per_block": float(
                                res_np["cfull"][:, ::128].mean())},
                "verify": {"kernel_ms": ev_ms, "call_s": ev_call_s,
@@ -1040,9 +1046,10 @@ def k2_jacobi_flops(p: int, steps: int, cfull, ccheap, citer) -> float:
     the grip sum (~10), ~150 of lane-level updates; each Jacobi sweep
     (``citer`` counts them) a finger pass (~90 a point) and a plane pass
     (~60), their sums and the velocity updates (~60); a travel step the
-    servo update (15); every step the gates (25). The kernel recomputes a
-    point's masses and targets in every pass; that repetition is not
-    counted: the bound is the least work of the function."""
+    servo update (15); every step the gates (25). Like the plain version,
+    the kernel computes a point's masses, targets and caps once a step
+    (an earlier design recomputed them in every pass, which would not have
+    counted either): the bound is the least work of the function."""
     cf, cc, ci = (np.asarray(x, np.float64) for x in (cfull, ccheap, citer))
     travel = steps - cf - cc
     return float(np.sum(cf * (p * (5 + 215 + 45 + 40 + 10) + 150)
@@ -1188,6 +1195,44 @@ def pure_step_cost(dev, scenes, grid) -> dict:
     return cost
 
 
+def k2_inputs(dev) -> dict:
+    """Phase 11's inputs of K2 (scripts/probe_k2_jacobi.py reads them too):
+    the mug with grippers 0-7 as scenes over the 9,088-pose grid (the
+    datagen shape), and grippers 100-115 normalised (``pts``) and as scenes,
+    with ``nrot`` = 45 orientations (``thetas``) padded to 128 poses (the
+    verification shape). Poses lie on ``dev``; the scenes stay on the host, so that the
+    caller builds their arrays under the solver it sets."""
+    import torch
+
+    from dgdm_tpu_torch.geom import mesh3d
+    from dgdm_tpu_torch.geom.fingers import (denormalize_y, normalize_y,
+                                             sample_gripper_3d)
+    from dgdm_tpu_torch.sim import datagen, engine2d, engine3d
+
+    verts, faces = mesh3d.load_obj(MUG)
+    props = engine3d.object_properties_3d(verts, faces)
+    scenes8 = datagen.stack_scenes([
+        engine3d.make_scene(*sample_gripper_3d(i), verts, faces,
+                            obj_props=props) for i in range(8)])
+    grid = engine2d.pose_grid()
+    ys = np.stack([np.concatenate(sample_gripper_3d(100 + i))
+                   for i in range(16)])
+    pts = normalize_y(ys, fingers_3d=True)
+    scenes16 = datagen.stack_scenes([
+        engine3d.make_scene(yi[:21], yi[21:], verts, faces, obj_props=props)
+        for yi in denormalize_y(pts, fingers_3d=True)])
+    nrot = 45
+    thetas = (np.linspace(-1.0, 1.0, nrot) * np.pi + np.pi).astype(
+        np.float32)
+    th_p = datagen.pad_poses(thetas[:, None])[:, 0]
+    eposes = np.stack([np.zeros_like(th_p), np.zeros_like(th_p), th_p], -1)
+    return {"verts": verts, "faces": faces, "props": props,
+            "scenes8": scenes8, "grid": grid,
+            "poses": torch.as_tensor(datagen.pad_poses(grid), device=dev),
+            "pts": pts, "scenes16": scenes16, "nrot": nrot, "thetas": thetas,
+            "eposes": torch.as_tensor(eposes, device=dev)}
+
+
 def phase_3d_solvers(dev) -> dict:
     """Phase 11: K2's Jacobi instantiation at the datagen and verification
     shapes (engine3d.SOLVER3 = "jacobi", restored after), its adaptive-Newton
@@ -1199,10 +1244,8 @@ def phase_3d_solvers(dev) -> dict:
     from dgdm_tpu_torch.core.config import SIM
     from dgdm_tpu_torch.eval.simeval3d import (eval_rollout_batch_3d,
                                                sim_eval_batch_3d)
-    from dgdm_tpu_torch.geom import mesh3d
-    from dgdm_tpu_torch.geom.fingers import normalize_y, sample_gripper_3d
-    from dgdm_tpu_torch.sim import (datagen, datagen3d, engine2d, engine3d,
-                                    rollout3d)
+    from dgdm_tpu_torch.geom.fingers import sample_gripper_3d
+    from dgdm_tpu_torch.sim import datagen, datagen3d, engine3d, rollout3d
     from dgdm_tpu_torch.sim.rollout3d_ref import OUT_NAMES, profile_batch_ref
     from dgdm_tpu_torch.sim.types import to_device
 
@@ -1215,13 +1258,9 @@ def phase_3d_solvers(dev) -> dict:
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    verts, faces = mesh3d.load_obj(MUG)
-    props = engine3d.object_properties_3d(verts, faces)
-    scenes8 = datagen.stack_scenes([
-        engine3d.make_scene(*sample_gripper_3d(i), verts, faces,
-                            obj_props=props) for i in range(8)])
-    grid = engine2d.pose_grid()
-    poses = torch.as_tensor(datagen.pad_poses(grid), device=dev)
+    inp = k2_inputs(dev)
+    verts, faces, props = inp["verts"], inp["faces"], inp["props"]
+    scenes8, grid, poses = inp["scenes8"], inp["grid"], inp["poses"]
     old = engine3d.SOLVER3
     try:
         engine3d.SOLVER3 = "jacobi"
@@ -1239,8 +1278,14 @@ def phase_3d_solvers(dev) -> dict:
         check(float(arrs8[2][0, 0, 14]) == engine3d.default_calib3()
               .k_contact and float(arrs8[2][0, 0, 12]) == 1.0,
               "the Jacobi calibration in the scalar slots")
-        dg_ms, raw = timed_cuda(lambda: rollout3d.rollout(*arrs8, poses),
-                                reps=1)
+        # three calls, timed one by one (profile_pairs_3d warmed it)
+        dg_runs = []
+        for _ in range(3):
+            t, raw = timed_cuda(lambda: rollout3d.rollout(*arrs8, poses),
+                                reps=1, warm=False)
+            dg_runs.append(t)
+        dg_ms = float(np.mean(dg_runs))
+        dg_plan = dict(rollout3d.LAST_PLAN)
         plan = chosen(rollout3d)
         rv = k2_view(raw, poses)
         check(np.array_equal(rv["dth"][:, :9000], dth)
@@ -1258,12 +1303,16 @@ def phase_3d_solvers(dev) -> dict:
         a_bound, a_bound_by = bound_ms(
             k2_jacobi_flops(256, SIM.steps_3d, raw[9].cpu(), raw[10].cpu(),
                             raw[11].cpu()), k2_bytes(8, 256, 9088))
+        spread = 100.0 * (max(dg_runs) - min(dg_runs)) / dg_ms
         print(f"  K2 Jacobi datagen 8x9088x800: {plan}; profile_pairs_3d "
-              f"{a_call_s:.2f}s on the host clock, kernel {dg_ms:.1f} ms, "
-              f"plain {1e3 * a_plain_s:.0f} ms, bound {a_bound:.2f} ms "
-              f"({a_bound_by}); full steps per block "
-              f"{rv['cfull'][:, ::128].mean():.0f} of 800, valid "
-              f"{rv['valid'].mean():.4f}", flush=True)
+              f"{a_call_s:.2f}s on the host clock, kernel {dg_ms:.1f} ms "
+              f"(calls {', '.join(f'{t:.1f}' for t in dg_runs)}: spread "
+              f"{spread:.2f}%; not measured here: the earlier design, commit "
+              f"287298e, 4,027 ms in PERF.md section 6), plain "
+              f"{1e3 * a_plain_s:.0f} ms, bound {a_bound:.2f} ms "
+              f"({a_bound_by}), {100.0 * a_bound / dg_ms:.1f}% of it; full "
+              f"steps per block {rv['cfull'][:, ::128].mean():.0f} of 800, "
+              f"valid {rv['valid'].mean():.4f}", flush=True)
         gold = np.load(os.path.join(ROOT, "tests", "fixtures",
                                     "rollout3d_jacobi_golden.npz"))
         check(str(gold["solver"]) == "jacobi", "Jacobi golden fixture")
@@ -1281,7 +1330,8 @@ def phase_3d_solvers(dev) -> dict:
                 k2_view(g_out, gposes), k2_view(g_ref, gposes),
                 f"K2 Jacobi golden {sched} ({steps} steps), kernel vs TPU "
                 f"kernel", valid_min=JACOBI_VALID_MIN[sched])
-        out["datagen"] = {"kernel_ms": dg_ms, "call_s": a_call_s,
+        out["datagen"] = {"kernel_ms": dg_ms, "runs_ms": dg_runs,
+                          "plan": dg_plan, "call_s": a_call_s,
                           "plain_ms": 1e3 * a_plain_s,
                           "bound_ms": a_bound, "bound_by": a_bound_by,
                           "full_steps_per_block": float(
@@ -1289,10 +1339,7 @@ def phase_3d_solvers(dev) -> dict:
                           "golden": a_gold, "launches": a_launches}
 
         # ---- (b) the verification shape through sim_eval_batch_3d ------
-        ys = np.stack([np.concatenate(sample_gripper_3d(100 + i))
-                       for i in range(16)])
-        pts = normalize_y(ys, fingers_3d=True)
-        nrot = 45
+        pts, nrot, thetas = inp["pts"], inp["nrot"], inp["thetas"]
         reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1308,22 +1355,20 @@ def phase_3d_solvers(dev) -> dict:
         check(len(metrics) == 16 and all(
             np.isfinite(m["delta_theta"]).all() for m in metrics),
             "sim_eval_batch_3d: 16 finite metric dicts")
-        from dgdm_tpu_torch.geom.fingers import denormalize_y
-        y = denormalize_y(pts, fingers_3d=True)
-        scenes16 = datagen.stack_scenes([
-            engine3d.make_scene(yi[:21], yi[21:], verts, faces,
-                                obj_props=props) for yi in y])
+        scenes16 = inp["scenes16"]
         arrs16 = rollout3d.scene_arrays_3d(scenes16, device=dev)
-        thetas = (np.linspace(-1.0, 1.0, nrot) * np.pi + np.pi).astype(
-            np.float32)
-        th_p = datagen.pad_poses(thetas[:, None])[:, 0]
-        eposes = torch.as_tensor(
-            np.stack([np.zeros_like(th_p), np.zeros_like(th_p), th_p], -1),
-            device=dev)
+        eposes = inp["eposes"]
         ekw = dict(regrasp_every=SIM.eval_regrasp_3d,
                    snapshot_step=SIM.eval_regrasp_3d)
         ev_ms, ev = timed_cuda(lambda: rollout3d.rollout(
             *arrs16, eposes, steps=SIM.eval_steps_3d, **ekw), reps=1,
+            warm=False)
+        ev_plan = dict(rollout3d.LAST_PLAN)
+        # the tail: 15 grippers fill one wave of the resident clusters, the
+        # 16th runs alone in a second
+        a15 = [a[:15].contiguous() for a in arrs16]
+        t15_ms, _ = timed_cuda(lambda: rollout3d.rollout(
+            *a15, eposes, steps=SIM.eval_steps_3d, **ekw), reps=1,
             warm=False)
         sq = rollout3d.rollout(*arrs16, eposes, steps=SIM.eval_regrasp_3d)
         for a in range(5, 9):
@@ -1356,11 +1401,20 @@ def phase_3d_solvers(dev) -> dict:
             k2_bytes(16, 256, 128))
         print(f"  K2 Jacobi verify 16x128x32000: {chosen(rollout3d)}; "
               f"sim_eval_batch_3d {b_call_s:.2f}s on the host clock, kernel "
-              f"{ev_ms:.0f} ms, bound {b_bound:.2f} ms ({b_bound_by}); "
+              f"{ev_ms:.0f} ms (not measured here: the earlier design, commit "
+              f"287298e, 8,483 ms in PERF.md section 6), bound "
+              f"{b_bound:.2f} ms ({b_bound_by}), "
+              f"{100.0 * b_bound / ev_ms:.1f}% of it; "
               f"snapshot bitwise equal to the 800-step squeeze; at {cut_b} "
               f"steps kernel {cb_ms:.0f} ms, plain {b_plain_s:.1f}s",
               flush=True)
-        out["verify"] = {"kernel_ms": ev_ms, "call_s": b_call_s,
+        print(f"  K2 Jacobi verify tail: 15 grippers {t15_ms:.0f} ms, 16 "
+              f"{ev_ms:.0f} ms ({ev_ms / t15_ms:.2f}x): "
+              f"{ev_plan['max_active_clusters']} clusters of "
+              f"{ev_plan['cluster']} resident, so the 16th gripper's cluster "
+              f"runs alone in a second wave", flush=True)
+        out["verify"] = {"kernel_ms": ev_ms, "plan": ev_plan,
+                         "kernel_ms_15": t15_ms, "call_s": b_call_s,
                          "bound_ms": b_bound, "bound_by": b_bound_by,
                          "cut_steps": cut_b, "cut_kernel_ms": cb_ms,
                          "cut_plain_s": b_plain_s, "launches": b_launches}
@@ -1381,6 +1435,7 @@ def phase_3d_solvers(dev) -> dict:
               f"(c) launched the adaptive instantiation once: {c_launches}")
         tol_ms, traw = timed_cuda(lambda: rollout3d.rollout(
             *arrs8n, poses, **tol), reps=1)
+        tol_plan = dict(rollout3d.LAST_PLAN)
         check(all(torch.equal(a, b) for a, b in zip(res[-1], traw[9:])),
               "(c) profile_batch returns this kernel's counters")
         fix_ms, fraw = timed_cuda(lambda: rollout3d.rollout(*arrs8n, poses),
@@ -1427,7 +1482,7 @@ def phase_3d_solvers(dev) -> dict:
                 f"K2 newton_tol golden {sched} ({steps} steps), kernel vs "
                 f"TPU kernel")
         out["newton_tol"] = {
-            "kernel_ms": tol_ms, "fixed_kernel_ms": fix_ms,
+            "kernel_ms": tol_ms, "fixed_kernel_ms": fix_ms, "plan": tol_plan,
             "call_s": c_call_s, "plain_ms": 1e3 * c_plain_s,
             "bound_ms": c_bound, "bound_by": c_bound_by,
             "iters_per_full_step_mean": float(per.mean()),
@@ -2354,9 +2409,11 @@ def main() -> int:
     check(all(len(v) == 1 for v in inst3.values()),
           f"rollout3d: instantiations Solver = 0, 1, 2 in the build log: "
           f"{regs3}")
-    registers = {"rollout2d": inst[0][0], "rollout2d_jacobi": inst[1][0],
-                 "rollout3d": inst3[0][0], "rollout3d_jacobi": inst3[1][0],
-                 "rollout3d_newton_tol": inst3[2][0]}
+    # (registers, spill bytes) of each instantiation
+    ptxas = {"rollout2d": inst[0][0], "rollout2d_jacobi": inst[1][0],
+             "rollout3d": inst3[0][0], "rollout3d_jacobi": inst3[1][0],
+             "rollout3d_newton_tol": inst3[2][0]}
+    registers = {k: v[0] for k, v in ptxas.items()}
     for lib in libraries.values():
         lib.get()
 
@@ -2608,6 +2665,7 @@ def main() -> int:
     # ---- summary ----------------------------------------------------------
     summary = {
         "card": card, "build_s": build_s, "registers": registers,
+        "spill_bytes": {k: v[1] for k, v in ptxas.items()},
         "travel_k1": k1_travel,
         "datagen": {"kernel_ms": dg_ms, "plain_ms": dg_plain_ms,
                     "bound_ms": dg_bound, "bound_by": dg_bound_by,
@@ -2631,6 +2689,13 @@ def main() -> int:
     }
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
+    # shared bytes a block of each instantiation, at the shape of its entry
+    shared = {"rollout2d": ev_plan["shared_bytes"],
+              "rollout2d_jacobi": jac["datagen"]["plan"]["shared_bytes"],
+              "rollout3d": k2["verify"]["plan"]["shared_bytes"],
+              "rollout3d_jacobi": s3["datagen"]["plan"]["shared_bytes"],
+              "rollout3d_newton_tol": s3["newton_tol"]["plan"][
+                  "shared_bytes"]}
     print(json.dumps({"kernels": [{
         "name": "rollout2d", "route": "cuda",
         "source": "dgdm_tpu_torch/csrc/rollout2d.cu",
@@ -2644,6 +2709,8 @@ def main() -> int:
         "threads_per_rollout": ev_plan["threads_per_rollout"],
         "cluster": ev_plan["cluster"],
         "registers": registers["rollout2d"],
+        "spill_bytes": ptxas["rollout2d"][1],
+        "shared_bytes": shared["rollout2d"],
         "datagen_ms": dg_ms, "datagen_plain_ms": dg_plain_ms,
         "datagen_bound_ms": dg_bound,
         "travel_us_per_step": k1_travel["us_per_step"],
@@ -2669,6 +2736,8 @@ def main() -> int:
         "threads_per_rollout": k2["verify"]["plan"]["threads_per_rollout"],
         "cluster": k2["verify"]["plan"]["cluster"],
         "registers": registers["rollout3d"],
+        "spill_bytes": ptxas["rollout3d"][1],
+        "shared_bytes": shared["rollout3d"],
         "travel_us_per_step": k2["travel"]["us_per_step"],
         "verify_ms": k2["verify"]["kernel_ms"],
         "verify_bound_ms": k2["verify"]["bound_ms"],
@@ -2694,6 +2763,8 @@ def main() -> int:
         "bound_by": jac["datagen"]["bound_by"], "library_ms": None,
         "shape": "8 pairs x 9088 poses x 200 steps (datagen)",
         "registers": registers["rollout2d_jacobi"],
+        "spill_bytes": ptxas["rollout2d_jacobi"][1],
+        "shared_bytes": shared["rollout2d_jacobi"],
         "verify_ms": jac["verify"]["kernel_ms"],
         "verify_bound_ms": jac["verify"]["bound_ms"],
         "verify_shape": "16 pairs x 384 poses x 8000 steps",
@@ -2713,6 +2784,11 @@ def main() -> int:
         "bound_by": s3["datagen"]["bound_by"], "library_ms": None,
         "shape": "8 pairs x 9088 poses x 800 steps (datagen)",
         "registers": registers["rollout3d_jacobi"],
+        "spill_bytes": ptxas["rollout3d_jacobi"][1],
+        "shared_bytes": shared["rollout3d_jacobi"],
+        "max_active_clusters": s3["datagen"]["plan"]["max_active_clusters"],
+        "datagen_runs_ms": s3["datagen"]["runs_ms"],
+        "verify_15_grippers_ms": s3["verify"]["kernel_ms_15"],
         "verify_ms": s3["verify"]["kernel_ms"],
         "verify_bound_ms": s3["verify"]["bound_ms"],
         "verify_plain_bitwise_steps": s3["verify"]["cut_steps"],
@@ -2731,6 +2807,8 @@ def main() -> int:
         "shape": "8 pairs x 9088 poses x 800 steps (datagen), newton_iters "
                  "6, newton_tol 1e-4",
         "registers": registers["rollout3d_newton_tol"],
+        "spill_bytes": ptxas["rollout3d_newton_tol"][1],
+        "shared_bytes": shared["rollout3d_newton_tol"],
         "fixed_count_ms": s3["newton_tol"]["fixed_kernel_ms"],
         "iters_per_full_step_mean": s3["newton_tol"][
             "iters_per_full_step_mean"],

@@ -69,17 +69,25 @@
 // the rollout's points: a lane min and a shuffle min, exact in any order),
 // pass C the grip load of the clamped impulse; then solver_iters = 8 sweeps,
 // each a pass over the finger contact set and one over the plane set, whose
-// float64 sums update the velocities between the two. A point keeps a normal
-// impulse and a 3-vector tangential impulse per set across the sweeps. The
-// slab holds, per point, those 8 accumulators and the finger normal and depth
-// (12 floats, 192 KB a block at P = 256, one block an SM as for Newton); the
-// rest of a point's quantities (lever arm, effective masses, targets, the
-// clamped impulse, the roughness cap) are recomputed in every pass from them
-// with the expressions of pass A, so they round identically. Two other plans
-// were reckoned: the Newton slab's 12 geometry floats plus the 8
-// accumulators (320 KB, does not fit), and 8 rollouts a block in clusters of
-// 16 (non-portable). The launcher refuses a point count whose slab does not
-// fit a block (P > 256 on the H100) and names it.
+// float64 sums update the velocities between the two. Everything a sweep
+// reads and no sweep writes is computed once a step, by passes A and C with
+// the plain version's expressions (so it rounds the same), into a slab of 12
+// floats a point in the thread's column of shared memory (192 KB a block at
+// P = 256, one block an SM): the lever arm, the finger normal, the finger
+// set's weight, target, clamped impulse and roughness cap, and the plane
+// set's weight and target. The sweeps then do only the impulse updates, on
+// each point's 7 impulses held in registers (the lane's 8 points unrolled;
+// the plane set's tangential z impulse stays 0 and is not held), and reduce
+// a set's sums as one vector (rollout::group_sum_vec: 9 and 8 float64
+// exchanges where 8 and 6 butterflies take 40 and 30). Measured on an NVIDIA
+// H100 80GB HBM3 at 700 W against the design before (12 floats a point:
+// the narrow phase's normal and depth and the impulses, everything else
+// recomputed in each of the 19 passes of a step; since replaced), in one
+// process (scripts/probe_k2_jacobi.py): 2,293 against 3,997 ms at 8 pairs
+// x 9,088 poses x 800 steps, 4,828 against 8,419 ms at 16 x 128 x 32,000,
+// the outputs bitwise equal; 114 registers against 72, 0 spills either
+// way. The launcher refuses more than 8 points a lane (P > 256), whose
+// slab would not fit a block either.
 //
 // Numerics: float32 state and elementwise physics, compiled without fast
 // math and with -fmad=false, so that each expression rounds like the plain
@@ -959,12 +967,21 @@ __device__ void cheap_solve(const Shared& sh, const Pair& pc,
 
 // ---- Jacobi (Solver = kJacobi) --------------------------------------------
 
-// The slab of the Jacobi instantiation, in each thread's own column: per
-// point the finger normal and depth of the narrow phase (kJGeo floats; the
-// jaw of the contact is the sign of n_y), then the finger set's normal and
-// tangential impulse and the plane set's (8 floats).
-constexpr int kJGeo = 4;
-constexpr int kJHeld = kJGeo + 8;
+// Points a lane holds at most (ceil(P / G) <= kJMaxK; the launcher refuses
+// more): their sweep impulses live in registers, in arrays that the fully
+// unrolled point loop of the sweeps indexes.
+constexpr int kJMaxK = 8;
+
+// The slab of the Jacobi instantiation, per point in the thread's own
+// column: what the sweeps read and none of them writes. Pass A leaves three
+// quantities of passes B and C in the slots of final ones (kJWme: the
+// effective mass me_f; kJImp: the unclamped wedge impulse dv_el; kJWmeP:
+// the pushout headroom), and pass C puts the final ones there.
+constexpr int kJRx = 0, kJRy = 1, kJRz = 2;     // lever arm
+constexpr int kJNx = 3, kJNy = 4, kJNz = 5;     // finger normal (left: ny > 0)
+constexpr int kJWme = 6, kJTgt = 7, kJImp = 8, kJRough = 9;   // finger set
+constexpr int kJWmeP = 10, kJTgtP = 11;         // plane set
+constexpr int kJHeld = 12;
 
 // A finger point of the Jacobi solve: lever arm, world z and narrow phase.
 struct JPoint {
@@ -984,24 +1001,6 @@ __device__ __forceinline__ void jarm(const Shared& sh, const Lane& L, int p,
   j.wz = L.pz + j.rz;
 }
 
-// A point of a later pass: the narrow phase from the slab.
-template <int T>
-__device__ __forceinline__ void jpoint(const Shared& sh,
-                                       const Rollout3DParams& prm,
-                                       const Lane& L, int p, const float* col,
-                                       JPoint& j) {
-  float wx, wy;
-  jarm(sh, L, p, j, wx, wy);
-  j.o.nfx = col[0];
-  j.o.nfy = col[T];
-  j.o.nfz = col[2 * T];
-  j.o.depth_f = col[3 * T];
-  j.o.is_l = j.o.nfy > 0.0f;
-  bool in_dom = (wx >= prm.x0f) && (wx <= prm.x1f) && (j.wz >= prm.z0f) &&
-                (j.wz <= prm.z1f);
-  j.o.act_f = step01(j.o.depth_f > 0.0f && in_dom);
-}
-
 // The elastic wedge's unclamped velocity impulse of a finger point
 // (pallas3d.py:311-317), with its clipped depth and pushout cap.
 __device__ __forceinline__ float wedge_dv(const Pair& pc,
@@ -1019,89 +1018,121 @@ __device__ __forceinline__ float wedge_dv(const Pair& pc,
 // Projected Jacobi with the explicit elastic wedge (pallas3d.py:302-433):
 // u = (vx, vy, vz, ox, oy, oz, qdl, qdr) out, from the step's start
 // velocities (L). Lane r of the rollout's G lanes takes the points r,
-// r + G, ...
+// r + G, ... Passes A-C compute each point's sweep constants once, with the
+// expressions of the plain version; the 2 x solver_iters sweeps then do
+// only the impulse updates, on impulses held in registers.
 template <int G>
 __device__ void jacobi_solve(const Shared& sh, const Pair& pc,
                              const Rollout3DParams& prm, const Lane& L, int P,
                              float* slab, float* u) {
   constexpr int T = rollout::Layout<G>::kThreads;
   const float dt = prm.dt;
-  // ---- pass A: narrow phase, the unclamped elastic impulse ----
-  double s_af = 0.0, s_ap = 0.0, s_x = 0.0, s_y = 0.0, s_z = 0.0,
-         s_tx = 0.0, s_ty = 0.0, s_tz = 0.0, s_l = 0.0, s_r = 0.0;
-  for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
-    float* col = slab + k * kJHeld * T;
-    JPoint j;
-    float wx, wy;
-    jarm(sh, L, p, j, wx, wy);
-    finger_narrow(sh, prm, L, wx, wy, j.wz, j.o);
-    col[0] = j.o.nfx;
-    col[T] = j.o.nfy;
-    col[2 * T] = j.o.nfz;
-    col[3 * T] = j.o.depth_f;
+  // bit k: the lane's point k is in the finger set; bit kJMaxK + k: in the
+  // plane set
+  unsigned act = 0u;
+  // ---- pass A: narrow phase, the unclamped elastic impulse (ten sums) ----
+  float cnt_f, cnt_p, dvx_u, dvy_u, dvz_u, dox_u, doy_u, doz_u, dqdl_u, dqdr_u;
+  {
+    double s[10];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) col[(kJGeo + q) * T] = 0.0f;
-    float me_f, vn_f0, depth_el, v_cap;
-    finger_mass(pc, L, j.rx, j.ry, j.rz, j.o, me_f, vn_f0);
-    const float imp0 = me_f * wedge_dv(pc, prm, j.o, vn_f0, depth_el, v_cap);
-    const float i0x = imp0 * j.o.nfx, i0y = imp0 * j.o.nfy,
-                i0z = imp0 * j.o.nfz;
-    const float sl = step01(j.o.is_l);
-    s_af = s_af + (double)j.o.act_f;
-    s_ap = s_ap + (double)step01(prm.plane_z - j.wz > 0.0f);
-    s_x = s_x + (double)i0x;
-    s_y = s_y + (double)i0y;
-    s_z = s_z + (double)i0z;
-    s_tx = s_tx + (double)(j.ry * i0z - j.rz * i0y);
-    s_ty = s_ty + (double)(j.rz * i0x - j.rx * i0z);
-    s_tz = s_tz + (double)(j.rx * i0y - j.ry * i0x);
-    s_l = s_l + (double)(sl * i0y);
-    s_r = s_r + (double)((1.0f - sl) * i0y);
+    for (int q = 0; q < 10; ++q) s[q] = 0.0;
+    for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
+      float* col = slab + k * kJHeld * T;
+      JPoint j;
+      float wx, wy;
+      jarm(sh, L, p, j, wx, wy);
+      finger_narrow(sh, prm, L, wx, wy, j.wz, j.o);
+      float me_f, vn_f0, depth_el, v_cap;
+      finger_mass(pc, L, j.rx, j.ry, j.rz, j.o, me_f, vn_f0);
+      const float dv_el = wedge_dv(pc, prm, j.o, vn_f0, depth_el, v_cap);
+      const float imp0 = me_f * dv_el;
+      const float i0x = imp0 * j.o.nfx, i0y = imp0 * j.o.nfy,
+                  i0z = imp0 * j.o.nfz;
+      const float sl = step01(j.o.is_l);
+      // the plane row of the point, as plane_geo computes it
+      const float depth_p = prm.plane_z - j.wz;
+      const float act_p = step01(depth_p > 0.0f);
+      const float vpz = L.vz + L.ox * j.ry - L.oy * j.rx;
+      col[kJRx * T] = j.rx;
+      col[kJRy * T] = j.ry;
+      col[kJRz * T] = j.rz;
+      col[kJNx * T] = j.o.nfx;
+      col[kJNy * T] = j.o.nfy;
+      col[kJNz * T] = j.o.nfz;
+      col[kJWme * T] = me_f;
+      col[kJTgt * T] = prm.tgt_fj_v * vn_f0 + prm.tgt_fj_d * j.o.depth_f;
+      col[kJImp * T] = dv_el;
+      col[kJRough * T] = pc.rough * me_f * mn(depth_el, prm.rough_sat);
+      col[kJWmeP * T] = mx(v_cap - vn_f0, 0.0f);
+      col[kJTgtP * T] = prm.tgt_p_v * vpz + prm.tgt_p_d * depth_p;
+      act |= (j.o.act_f != 0.0f ? 1u : 0u) << k;
+      act |= (act_p != 0.0f ? 1u : 0u) << (kJMaxK + k);
+      s[0] = s[0] + (double)j.o.act_f;
+      s[1] = s[1] + (double)act_p;
+      s[2] = s[2] + (double)i0x;
+      s[3] = s[3] + (double)i0y;
+      s[4] = s[4] + (double)i0z;
+      s[5] = s[5] + (double)(j.ry * i0z - j.rz * i0y);
+      s[6] = s[6] + (double)(j.rz * i0x - j.rx * i0z);
+      s[7] = s[7] + (double)(j.rx * i0y - j.ry * i0x);
+      s[8] = s[8] + (double)(sl * i0y);
+      s[9] = s[9] + (double)((1.0f - sl) * i0y);
+    }
+    float t[10];
+    rollout::group_sum_vec<G, 10>(s, t);
+    cnt_f = mx(t[0], 1.0f);
+    cnt_p = mx(t[1], 1.0f);
+    dvx_u = t[2] * pc.inv_m;
+    dvy_u = t[3] * pc.inv_m;
+    dvz_u = t[4] * pc.inv_m;
+    dox_u = L.w00 * t[5] + L.w01 * t[6] + L.w02 * t[7];
+    doy_u = L.w01 * t[5] + L.w11 * t[6] + L.w12 * t[7];
+    doz_u = L.w02 * t[5] + L.w12 * t[6] + L.w22 * t[7];
+    dqdl_u = -t[8] * pc.inv_fml;
+    dqdr_u = -t[9] * pc.inv_fmr;
   }
-  const float cnt_f = mx(group_sum<G>(s_af), 1.0f);
-  const float cnt_p = mx(group_sum<G>(s_ap), 1.0f);
-  const float dvx_u = group_sum<G>(s_x) * pc.inv_m;
-  const float dvy_u = group_sum<G>(s_y) * pc.inv_m;
-  const float dvz_u = group_sum<G>(s_z) * pc.inv_m;
-  const float tqx = group_sum<G>(s_tx), tqy = group_sum<G>(s_ty),
-              tqz = group_sum<G>(s_tz);
-  const float dox_u = L.w00 * tqx + L.w01 * tqy + L.w02 * tqz;
-  const float doy_u = L.w01 * tqx + L.w11 * tqy + L.w12 * tqz;
-  const float doz_u = L.w02 * tqx + L.w12 * tqy + L.w22 * tqz;
-  const float dqdl_u = -group_sum<G>(s_l) * pc.inv_fml;
-  const float dqdr_u = -group_sum<G>(s_r) * pc.inv_fmr;
 
   // ---- pass B: the global energy clamp, a min over the points ----
   float lo = INFINITY;
   for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
-    JPoint j;
-    jpoint<T>(sh, prm, L, p, slab + k * kJHeld * T, j);
-    float me_f, vn_f0, depth_el, v_cap;
-    finger_mass(pc, L, j.rx, j.ry, j.rz, j.o, me_f, vn_f0);
-    const float dv_el = wedge_dv(pc, prm, j.o, vn_f0, depth_el, v_cap);
-    const float dqd_pt = j.o.is_l ? dqdl_u : dqdr_u;
-    const float dvn_ind =
-        (dvx_u + doy_u * j.rz - doz_u * j.ry) * j.o.nfx +
-        (dvy_u + doz_u * j.rx - dox_u * j.rz - dqd_pt) * j.o.nfy +
-        (dvz_u + dox_u * j.ry - doy_u * j.rx) * j.o.nfz;
-    const float headroom = mx(v_cap - vn_f0, 0.0f);
+    const float* col = slab + k * kJHeld * T;
+    const float rx = col[kJRx * T], ry = col[kJRy * T], rz = col[kJRz * T];
+    const float nx = col[kJNx * T], ny = col[kJNy * T], nz = col[kJNz * T];
+    const float dv_el = col[kJImp * T];
+    const float headroom = col[kJWmeP * T];
+    const float dqd_pt = ny > 0.0f ? dqdl_u : dqdr_u;
+    const float dvn_ind = (dvx_u + doy_u * rz - doz_u * ry) * nx +
+                          (dvy_u + doz_u * rx - dox_u * rz - dqd_pt) * ny +
+                          (dvz_u + dox_u * ry - doy_u * rx) * nz;
     const bool take = dv_el > 0.0f && dvn_ind > 1e-9f;
     const float denom = take ? dvn_ind : 1.0f;
     lo = mn(lo, take ? headroom / denom : INFINITY);
   }
   const float s_el = clampf(rollout::group_min<G>(lo), 0.0f, 1.0f);
 
-  // ---- pass C: the grip load of the clamped impulse ----
-  double s_g = 0.0;
-  for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
-    JPoint j;
-    jpoint<T>(sh, prm, L, p, slab + k * kJHeld * T, j);
-    float me_f, vn_f0, depth_el, v_cap;
-    finger_mass(pc, L, j.rx, j.ry, j.rz, j.o, me_f, vn_f0);
-    const float dv_el = wedge_dv(pc, prm, j.o, vn_f0, depth_el, v_cap);
-    s_g = s_g + (double)(s_el * (me_f * dv_el));
+  // ---- pass C: the grip load of the clamped impulse; the sweep weights ----
+  float grip_ratio;
+  {
+    double s_g[1] = {0.0};
+    for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
+      float* col = slab + k * kJHeld * T;
+      const float me_f = col[kJWme * T];
+      const float imp_el = s_el * (me_f * col[kJImp * T]);
+      s_g[0] = s_g[0] + (double)imp_el;
+      col[kJImp * T] = imp_el;
+      col[kJWme * T] = step01((act >> k) & 1u) / cnt_f * me_f;
+      // the plane row's effective mass, as plane_geo computes it
+      const float rx = col[kJRx * T], ry = col[kJRy * T];
+      const float nrx = -rx;
+      const float wxp = L.w00 * ry + L.w01 * nrx;
+      const float wyp = L.w01 * ry + L.w11 * nrx;
+      const float me_p = 1.0f / (pc.inv_m + (ry * wxp + nrx * wyp));
+      col[kJWmeP * T] = step01((act >> (kJMaxK + k)) & 1u) / cnt_p * me_p;
+    }
+    float t[1];
+    rollout::group_sum_vec<G, 1>(s_g, t);
+    grip_ratio = t[0] / (dt * pc.mass * prm.gravity);
   }
-  const float grip_ratio = group_sum<G>(s_g) / (dt * pc.mass * prm.gravity);
   const float plane_scale = 1.0f / (1.0f + pc.unload * grip_ratio);
   const float mu_p = pc.mu_plane * plane_scale;
 
@@ -1117,126 +1148,137 @@ __device__ void jacobi_solve(const Shared& sh, const Pair& pc,
   u[6] = L.qdl + dt * f_l * pc.inv_fml + s_el * dqdl_u;
   u[7] = L.qdr + dt * f_r * pc.inv_fmr + s_el * dqdr_u;
 
-  for (int it = 0; it < prm.solver_iters; ++it) {
-    // ---- the finger contact set ----
-    double a[8];
+  // Each point's impulses: the finger set's normal and tangential ones
+  // (lf) and the plane set's normal and tangential x, y ones (lp). The
+  // plane set's tangential z impulse is not held: its tangential velocity
+  // has z part vpz - vpz, so from 0 it stays +0 (any non-finite velocity
+  // makes every later value NaN either way).
+  float lf[kJMaxK][4], lp[kJMaxK][3];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) a[q] = 0.0;
-    for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
-      float* col = slab + k * kJHeld * T;
-      JPoint j;
-      jpoint<T>(sh, prm, L, p, col, j);
-      float me_f, vn_f0, depth_el, v_cap;
-      finger_mass(pc, L, j.rx, j.ry, j.rz, j.o, me_f, vn_f0);
-      const float dv_el = wedge_dv(pc, prm, j.o, vn_f0, depth_el, v_cap);
-      const float imp_el = s_el * (me_f * dv_el);
-      const float rough_cap = pc.rough * me_f * mn(depth_el, prm.rough_sat);
-      const float wme = j.o.act_f / cnt_f * me_f;
-      const float tgt = prm.tgt_fj_v * vn_f0 + prm.tgt_fj_d * j.o.depth_f;
-      const float nx = j.o.nfx, ny = j.o.nfy, nz = j.o.nfz;
-      const float rx = j.rx, ry = j.ry, rz = j.rz;
-      const float vpx = u[0] + u[4] * rz - u[5] * ry;
-      float vpy = u[1] + u[5] * rx - u[3] * rz;
-      const float vpz = u[2] + u[3] * ry - u[4] * rx;
-      vpy = vpy - (j.o.is_l ? u[6] : u[7]);
-      const float vn = vpx * nx + vpy * ny + vpz * nz;
-      float* lam = col + kJGeo * T;
-      const float lam_n = lam[0];
-      const float new_n = mx(lam_n + wme * (tgt - vn), 0.0f);
-      const float dn = new_n - lam_n;
-      const float ltx = lam[T], lty = lam[2 * T], ltz = lam[3 * T];
-      float ctx = ltx - wme * (vpx - vn * nx);
-      float cty = lty - wme * (vpy - vn * ny);
-      float ctz = ltz - wme * (vpz - vn * nz);
-      const float cap = pc.mu_finger * (new_n + imp_el) + rough_cap;
-      const float nrm = sqrtf(ctx * ctx + cty * cty + ctz * ctz + 1e-20f);
-      const float sc = mn(cap / nrm, 1.0f);
-      ctx = ctx * sc;
-      cty = cty * sc;
-      ctz = ctz * sc;
-      lam[0] = new_n;
-      lam[T] = ctx;
-      lam[2 * T] = cty;
-      lam[3 * T] = ctz;
-      const float ix = dn * nx + (ctx - ltx);
-      const float iy = dn * ny + (cty - lty);
-      const float iz = dn * nz + (ctz - ltz);
-      const float sl = step01(j.o.is_l);
-      a[0] = a[0] + (double)ix;
-      a[1] = a[1] + (double)iy;
-      a[2] = a[2] + (double)iz;
-      a[3] = a[3] + (double)(ry * iz - rz * iy);
-      a[4] = a[4] + (double)(rz * ix - rx * iz);
-      a[5] = a[5] + (double)(rx * iy - ry * ix);
-      a[6] = a[6] + (double)(sl * iy);
-      a[7] = a[7] + (double)((1.0f - sl) * iy);
-    }
+  for (int k = 0; k < kJMaxK; ++k) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) lf[k][q] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) lp[k][q] = 0.0f;
+  }
+  const float mu_f = pc.mu_finger;
+  for (int it = 0; it < prm.solver_iters; ++it) {
+    const int lane = lane_in_rollout<G>();
+    // ---- the finger contact set ----
     {
-      u[0] = u[0] + group_sum<G>(a[0]) * pc.inv_m;
-      u[1] = u[1] + group_sum<G>(a[1]) * pc.inv_m;
-      u[2] = u[2] + group_sum<G>(a[2]) * pc.inv_m;
-      const float tx = group_sum<G>(a[3]), ty = group_sum<G>(a[4]),
-                  tz = group_sum<G>(a[5]);
-      u[3] = u[3] + (L.w00 * tx + L.w01 * ty + L.w02 * tz);
-      u[4] = u[4] + (L.w01 * tx + L.w11 * ty + L.w12 * tz);
-      u[5] = u[5] + (L.w02 * tx + L.w12 * ty + L.w22 * tz);
-      u[6] = u[6] - group_sum<G>(a[6]) * pc.inv_fml;
-      u[7] = u[7] - group_sum<G>(a[7]) * pc.inv_fmr;
+      double a[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) a[q] = 0.0;
+#pragma unroll
+      for (int k = 0; k < kJMaxK; ++k) {
+        if (lane + k * G < P) {
+          const float* col = slab + k * kJHeld * T;
+          const float rx = col[kJRx * T], ry = col[kJRy * T],
+                      rz = col[kJRz * T];
+          const float nx = col[kJNx * T], ny = col[kJNy * T],
+                      nz = col[kJNz * T];
+          const float wme = col[kJWme * T], tgt = col[kJTgt * T];
+          const bool is_l = ny > 0.0f;
+          const float vpx = u[0] + u[4] * rz - u[5] * ry;
+          float vpy = u[1] + u[5] * rx - u[3] * rz;
+          const float vpz = u[2] + u[3] * ry - u[4] * rx;
+          vpy = vpy - (is_l ? u[6] : u[7]);
+          const float vn = vpx * nx + vpy * ny + vpz * nz;
+          const float lam_n = lf[k][0];
+          const float new_n = mx(lam_n + wme * (tgt - vn), 0.0f);
+          const float dn = new_n - lam_n;
+          const float ltx = lf[k][1], lty = lf[k][2], ltz = lf[k][3];
+          float ctx = ltx - wme * (vpx - vn * nx);
+          float cty = lty - wme * (vpy - vn * ny);
+          float ctz = ltz - wme * (vpz - vn * nz);
+          const float cap =
+              mu_f * (new_n + col[kJImp * T]) + col[kJRough * T];
+          const float nrm = sqrtf(ctx * ctx + cty * cty + ctz * ctz + 1e-20f);
+          const float sc = mn(cap / nrm, 1.0f);
+          ctx = ctx * sc;
+          cty = cty * sc;
+          ctz = ctz * sc;
+          lf[k][0] = new_n;
+          lf[k][1] = ctx;
+          lf[k][2] = cty;
+          lf[k][3] = ctz;
+          const float ix = dn * nx + (ctx - ltx);
+          const float iy = dn * ny + (cty - lty);
+          const float iz = dn * nz + (ctz - ltz);
+          const float sl = step01(is_l);
+          a[0] = a[0] + (double)ix;
+          a[1] = a[1] + (double)iy;
+          a[2] = a[2] + (double)iz;
+          a[3] = a[3] + (double)(ry * iz - rz * iy);
+          a[4] = a[4] + (double)(rz * ix - rx * iz);
+          a[5] = a[5] + (double)(rx * iy - ry * ix);
+          a[6] = a[6] + (double)(sl * iy);
+          a[7] = a[7] + (double)((1.0f - sl) * iy);
+        }
+      }
+      float t[8];
+      rollout::group_sum_vec<G, 8>(a, t);
+      u[0] = u[0] + t[0] * pc.inv_m;
+      u[1] = u[1] + t[1] * pc.inv_m;
+      u[2] = u[2] + t[2] * pc.inv_m;
+      u[3] = u[3] + (L.w00 * t[3] + L.w01 * t[4] + L.w02 * t[5]);
+      u[4] = u[4] + (L.w01 * t[3] + L.w11 * t[4] + L.w12 * t[5]);
+      u[5] = u[5] + (L.w02 * t[3] + L.w12 * t[4] + L.w22 * t[5]);
+      u[6] = u[6] - t[6] * pc.inv_fml;
+      u[7] = u[7] - t[7] * pc.inv_fmr;
     }
     // ---- the plane set: normal (0, 0, 1), in the kernel's products ----
+    {
+      double a[6];
 #pragma unroll
-    for (int q = 0; q < 6; ++q) a[q] = 0.0;
-    for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
-      float* lam = slab + k * kJHeld * T + (kJGeo + 4) * T;
-      PGeo g;
-      float wy, wx, wz;
-      plane_geo(sh, pc, prm, L, p, g, wy, wx, wz);
-      const float rx = g.rx, ry = g.ry, rz = g.rz;
-      const float act_p = step01(prm.plane_z - wz > 0.0f);
-      const float nrx = -rx;
-      const float wxp = L.w00 * ry + L.w01 * nrx;
-      const float wyp = L.w01 * ry + L.w11 * nrx;
-      const float me_p = 1.0f / (pc.inv_m + (ry * wxp + nrx * wyp));
-      const float wme = act_p / cnt_p * me_p;
-      const float vpx = u[0] + u[4] * rz - u[5] * ry;
-      const float vpy = u[1] + u[5] * rx - u[3] * rz;
-      const float vpz = u[2] + u[3] * ry - u[4] * rx;
-      const float vn = vpx * 0.0f + vpy * 0.0f + vpz * 1.0f;
-      const float lam_n = lam[0];
-      const float new_n = mx(lam_n + wme * (g.tgt_pn - vn), 0.0f);
-      const float dn = new_n - lam_n;
-      const float ltx = lam[T], lty = lam[2 * T], ltz = lam[3 * T];
-      float ctx = ltx - wme * (vpx - vn * 0.0f);
-      float cty = lty - wme * (vpy - vn * 0.0f);
-      float ctz = ltz - wme * (vpz - vn * 1.0f);
-      const float cap = mu_p * new_n;
-      const float nrm = sqrtf(ctx * ctx + cty * cty + ctz * ctz + 1e-20f);
-      const float sc = mn(cap / nrm, 1.0f);
-      ctx = ctx * sc;
-      cty = cty * sc;
-      ctz = ctz * sc;
-      lam[0] = new_n;
-      lam[T] = ctx;
-      lam[2 * T] = cty;
-      lam[3 * T] = ctz;
-      const float ix = dn * 0.0f + (ctx - ltx);
-      const float iy = dn * 0.0f + (cty - lty);
-      const float iz = dn * 1.0f + (ctz - ltz);
-      a[0] = a[0] + (double)ix;
-      a[1] = a[1] + (double)iy;
-      a[2] = a[2] + (double)iz;
-      a[3] = a[3] + (double)(ry * iz - rz * iy);
-      a[4] = a[4] + (double)(rz * ix - rx * iz);
-      a[5] = a[5] + (double)(rx * iy - ry * ix);
+      for (int q = 0; q < 6; ++q) a[q] = 0.0;
+#pragma unroll
+      for (int k = 0; k < kJMaxK; ++k) {
+        if (lane + k * G < P) {
+          const float* col = slab + k * kJHeld * T;
+          const float rx = col[kJRx * T], ry = col[kJRy * T],
+                      rz = col[kJRz * T];
+          const float wme = col[kJWmeP * T];
+          const float vpx = u[0] + u[4] * rz - u[5] * ry;
+          const float vpy = u[1] + u[5] * rx - u[3] * rz;
+          const float vpz = u[2] + u[3] * ry - u[4] * rx;
+          const float vn = vpx * 0.0f + vpy * 0.0f + vpz * 1.0f;
+          const float lam_n = lp[k][0];
+          const float new_n = mx(lam_n + wme * (col[kJTgtP * T] - vn), 0.0f);
+          const float dn = new_n - lam_n;
+          const float ltx = lp[k][1], lty = lp[k][2], ltz = 0.0f;
+          float ctx = ltx - wme * (vpx - vn * 0.0f);
+          float cty = lty - wme * (vpy - vn * 0.0f);
+          float ctz = ltz - wme * (vpz - vn * 1.0f);
+          const float cap = mu_p * new_n;
+          const float nrm = sqrtf(ctx * ctx + cty * cty + ctz * ctz + 1e-20f);
+          const float sc = mn(cap / nrm, 1.0f);
+          ctx = ctx * sc;
+          cty = cty * sc;
+          ctz = ctz * sc;
+          lp[k][0] = new_n;
+          lp[k][1] = ctx;
+          lp[k][2] = cty;
+          const float ix = dn * 0.0f + (ctx - ltx);
+          const float iy = dn * 0.0f + (cty - lty);
+          const float iz = dn * 1.0f + (ctz - ltz);
+          a[0] = a[0] + (double)ix;
+          a[1] = a[1] + (double)iy;
+          a[2] = a[2] + (double)iz;
+          a[3] = a[3] + (double)(ry * iz - rz * iy);
+          a[4] = a[4] + (double)(rz * ix - rx * iz);
+          a[5] = a[5] + (double)(rx * iy - ry * ix);
+        }
+      }
+      float t[6];
+      rollout::group_sum_vec<G, 6>(a, t);
+      u[0] = u[0] + t[0] * pc.inv_m;
+      u[1] = u[1] + t[1] * pc.inv_m;
+      u[2] = u[2] + t[2] * pc.inv_m;
+      u[3] = u[3] + (L.w00 * t[3] + L.w01 * t[4] + L.w02 * t[5]);
+      u[4] = u[4] + (L.w01 * t[3] + L.w11 * t[4] + L.w12 * t[5]);
+      u[5] = u[5] + (L.w02 * t[3] + L.w12 * t[4] + L.w22 * t[5]);
     }
-    u[0] = u[0] + group_sum<G>(a[0]) * pc.inv_m;
-    u[1] = u[1] + group_sum<G>(a[1]) * pc.inv_m;
-    u[2] = u[2] + group_sum<G>(a[2]) * pc.inv_m;
-    const float tx = group_sum<G>(a[3]), ty = group_sum<G>(a[4]),
-                tz = group_sum<G>(a[5]);
-    u[3] = u[3] + (L.w00 * tx + L.w01 * ty + L.w02 * tz);
-    u[4] = u[4] + (L.w01 * tx + L.w11 * ty + L.w12 * tz);
-    u[5] = u[5] + (L.w02 * tx + L.w12 * ty + L.w22 * tz);
   }
 }
 
@@ -1557,6 +1599,10 @@ extern "C" int rollout3d_launch(const float* coefs, const float* points,
   using LO = rollout::Layout<G>;
   if (B <= 0 || P <= 0 || N <= 0 || N % kLane != 0 ||
       prm.solver < kNewton || prm.solver > kNewtonTol)
+    return (int)cudaErrorInvalidValue;
+  // the Jacobi sweeps hold kJMaxK points a lane in registers (on the H100
+  // the slab of more would not fit a block either)
+  if (prm.solver == kJacobi && P > kJMaxK * G)
     return (int)cudaErrorInvalidValue;
   const size_t held = prm.solver == kJacobi ? kJHeld : kHeld;
   const size_t smem =

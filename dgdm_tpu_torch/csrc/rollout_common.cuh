@@ -14,6 +14,14 @@
 // the G partial sums are added by an xor butterfly (strides G/2, ..., 1:
 // the same value on every lane, since a + b == b + a), and the total rounds
 // once to float32. dgdm_tpu_torch/sim/point_sum.py computes the same order.
+// A pass that ends in several sums can reduce them as one vector
+// (group_sum_vec): a reduce-scatter over the same strides, in which a lane
+// keeps half of the values it still holds at each stride and adds its
+// partner's partial of them, so that each value is added over the same
+// pairs of lanes as by the butterfly and has its bits; each total then
+// rounds once on the lane where it ended and is broadcast as a float32. For
+// 8 values over 32 lanes that is 9 float64 exchanges and 8 float32 ones,
+// where 8 butterflies take 40 float64 exchanges.
 //
 // Group votes. GroupVote ORs one or two bits over all 128 * G threads of a
 // pose group: __syncthreads_or inside each block, then threads
@@ -85,6 +93,68 @@ __device__ __forceinline__ float group_sum(double v) {
   for (int m = G / 2; m >= 1; m >>= 1)
     v = v + __shfl_xor_sync(0xffffffffu, v, m);
   return (float)v;
+}
+
+namespace detail {
+
+// One stride M of group_sum_vec's reduce-scatter, with C values held (the
+// first C entries of v; a lane holds C - 1 real ones and a padding value
+// where an earlier stride split an odd count). A lane whose bit M is clear
+// keeps the first H = ceil(C / 2) of them, its partner the rest (padded to
+// H), and each adds the other's partial of what it keeps. From C == 1 on,
+// the remaining strides are group_sum's butterfly.
+template <int M, int C, int N>
+__device__ __forceinline__ void vec_stride(double (&v)[N], int lane) {
+  if constexpr (M >= 1) {
+    if constexpr (C == 1) {
+      v[0] = v[0] + __shfl_xor_sync(0xffffffffu, v[0], M);
+      vec_stride<M / 2, 1, N>(v, lane);
+    } else {
+      constexpr int H = (C + 1) / 2;
+      const bool up = (lane & M) != 0;
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        const double hi = H + j < C ? v[H + j < C ? H + j : 0] : 0.0;
+        const double mine = up ? hi : v[j];
+        const double send = up ? v[j] : hi;
+        v[j] = mine + __shfl_xor_sync(0xffffffffu, send, M);
+      }
+      vec_stride<M / 2, H, N>(v, lane);
+    }
+  }
+}
+
+// The lane (within its rollout) on which value q of C held at stride M
+// ends: the strides at which q lies in the upper half.
+template <int M, int C>
+__host__ __device__ constexpr int vec_owner(int q) {
+  if constexpr (M == 0) {
+    return 0;
+  } else if constexpr (C == 1) {
+    return vec_owner<M / 2, 1>(q);
+  } else {
+    constexpr int H = (C + 1) / 2;
+    return q < H ? vec_owner<M / 2, H>(q) : M + vec_owner<M / 2, H>(q - H);
+  }
+}
+
+}  // namespace detail
+
+// The totals of N float64 partial sums over the G lanes, each rounded once
+// to float32, in out[] on every lane: bitwise the N group_sum calls (see
+// "Point sums" above). v is consumed.
+template <int G, int N>
+__device__ __forceinline__ void group_sum_vec(double (&v)[N],
+                                              float (&out)[N]) {
+  detail::vec_stride<G / 2, N, N>(v, lane_in_rollout<G>());
+  if constexpr (N == 1) {
+    out[0] = (float)v[0];
+  } else {
+    const float t = (float)v[0];
+#pragma unroll
+    for (int q = 0; q < N; ++q)
+      out[q] = __shfl_sync(0xffffffffu, t, detail::vec_owner<G / 2, N>(q), G);
+  }
 }
 
 // NaN-propagating min / max over the G lanes (exact under any order).

@@ -175,13 +175,35 @@ def test_cuda_newton_tol_matches_plain_bitwise_and_golden():
 
 
 @pytest.mark.cuda
-def test_cuda_jacobi_launcher_refuses_more_points_than_fit():
-    """The Jacobi slab holds 12 floats a point: 512 points do not fit a
-    block's shared memory and are refused, not launched."""
+@pytest.mark.parametrize("p", [256, 200, 17])
+def test_cuda_jacobi_matches_plain_bitwise_at_point_counts(p):
+    """The Jacobi instantiation at the launcher's largest point count (256,
+    8 points a lane), at one that is no multiple of 32 (200: the lanes hold
+    7 or 6 points) and at fewer points than lanes (17): bitwise equal to the
+    plain version in the kernel's order on all 12 planes, over the datagen
+    schedule of the Jacobi golden fixture's pairs with their first P
+    points."""
+    _need_cuda()
+    z, arrs, poses = _fixture("rollout3d_jacobi_golden.npz")
+    arrs = [arrs[0], arrs[1][:, :p].contiguous(), arrs[2]]
+    out = rollout3d.rollout_cuda(*arrs, poses, 800, 0, 0, solver="jacobi")
+    torch.cuda.synchronize()
+    ref = profile_batch_ref(*arrs, poses, steps=800, solver="jacobi",
+                            sum_group=rollout3d.THREADS_PER_ROLLOUT)
+    assert float(out[9].amax()) > 0.0
+    for k, a, b in zip(NAMES3, out, ref):
+        assert torch.equal(a, b), f"{k} differs from the plain version"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [257, 512])
+def test_cuda_jacobi_launcher_refuses_more_points_than_fit(p):
+    """The Jacobi sweeps hold 8 points a lane (and the slab 12 floats a
+    point): 257 points (9 a lane) and 512 are refused, not launched."""
     _need_cuda()
     _, arrs, poses = _fixture("rollout3d_jacobi_golden.npz")
     before = rollout3d.KERNEL_LAUNCHES["rollout3d_jacobi"]
-    big = arrs[1].repeat(1, 2, 1)
+    big = arrs[1].repeat(1, 2, 1)[:, :p].contiguous()
     with pytest.raises(RuntimeError, match="point count"):
         rollout3d.rollout_cuda(arrs[0], big, arrs[2], poses, 100, 0, 0,
                                solver="jacobi")
