@@ -8,7 +8,7 @@ Phases, each printing its own lines:
    kernel from the sources in this checkout (one ``nvcc`` per source, all
    started together, compiled anew even where an earlier build is at hand),
    report the build time and what ``ptxas -v`` says of each kernel
-   (registers; spills must be 0 bytes);
+   (registers, at most 128 a thread; spills must be 0 bytes);
 2. kernel K1 (rollout2d), datagen schedule at full size: 8 procedural
    grippers x 1 synthetic icon x the 9,000-pose grid (padded to 9,088) x
    200 steps, held against its plain PyTorch version on the card and against
@@ -32,7 +32,10 @@ Phases, each printing its own lines:
    ``datagen3d.generate_3d`` builds it) x the 9,000-pose grid (padded to
    9,088) x 800 steps, held against its plain version on the card and
    against the golden outputs of the TPU kernel
-   (tests/fixtures/rollout3d_golden.npz) at both of its schedules;
+   (tests/fixtures/rollout3d_golden.npz) at both of its schedules, its
+   share of the bound and its Newton iterations a full step printed beside
+   PR 9's time (not measured in the run: commit 2164495, PERF.md section
+   6), as in phases 6, 10 (a), (b) and 11 (c);
 6. K2 at the verification shape of the 3D CLI: 16 grippers
    ``sample_gripper_3d(100..115)`` x mug_small x 45 orientations (padded to
    128) x 32,000 steps, regrasp and snapshot at 800, timed with CUDA events
@@ -415,6 +418,13 @@ def k2_bytes(b: int, p: int, n: int) -> int:
     return 4 * (b * (2 * 24 * 12 + 4 * p + 32) + 3 * n + 12 * b * n)
 
 
+def pr9(ms: str) -> str:
+    """A time of PR 9's kernel, printed beside this run's: not measured in
+    this run."""
+    return (f"not measured in this run: PR 9's kernel, commit 2164495, {ms} "
+            f"in PERF.md section 6")
+
+
 def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -463,12 +473,18 @@ def phases_3d(dev, clock: PhaseClock) -> dict:
         check(v.shape == (8, 9088), f"datagen {k} shape")
     dg_stats = parity(do, dr, "K2 datagen 8x9088x800, kernel vs plain")
     dg_exact = float(np.mean(do["dth"] == dr["dth"]))
+    dg_bound, dg_bound_by = bound_ms(
+        k2_flops(256, SIM.steps_3d, dout[9].cpu(), dout[10].cpu(),
+                 dout[11].cpu()), k2_bytes(8, 256, 9088))
     print(f"  kernel {dg_ms:.1f} ms/call ({8 * 9000 / dg_ms * 1e3:,.0f} "
-          f"rollouts/s of the 9,000-pose grid), plain {dg_plain_ms:.0f} ms; "
-          f"dtheta bitwise equal on {dg_exact:.4f} of lanes; valid "
-          f"{do['valid'].mean():.4f}; full/cheap steps per block "
-          f"{do['cfull'][:, ::128].mean():.1f}/"
-          f"{do['ccheap'][:, ::128].mean():.1f} of 800", flush=True)
+          f"rollouts/s of the 9,000-pose grid; {pr9('660.7 ms')}), plain "
+          f"{dg_plain_ms:.0f} ms; bound {dg_bound:.2f} ms ({dg_bound_by}), "
+          f"{100.0 * dg_bound / dg_ms:.1f}% of it; dtheta bitwise equal on "
+          f"{dg_exact:.4f} of lanes; valid {do['valid'].mean():.4f}; "
+          f"full/cheap steps per block {do['cfull'][:, ::128].mean():.1f}/"
+          f"{do['ccheap'][:, ::128].mean():.1f} of 800; Newton iterations a "
+          f"full step {float(dout[11].sum() / dout[9].sum()):.2f}",
+          flush=True)
     gold = np.load(os.path.join(ROOT, "tests", "fixtures",
                                 "rollout3d_golden.npz"))
     garrs = [torch.as_tensor(gold[k], device=dev)
@@ -484,9 +500,6 @@ def phases_3d(dev, clock: PhaseClock) -> dict:
         gold_stats[sched] = parity(
             k2_view(g_out, gposes), k2_view(g_ref, gposes),
             f"K2 golden {sched} ({steps} steps), kernel vs TPU kernel")
-    dg_bound, dg_bound_by = bound_ms(
-        k2_flops(256, SIM.steps_3d, dout[9].cpu(), dout[10].cpu(),
-                 dout[11].cpu()), k2_bytes(8, 256, 9088))
     out["datagen"] = {"kernel_ms": dg_ms, "plain_ms": dg_plain_ms,
                       "bound_ms": dg_bound, "bound_by": dg_bound_by,
                       "rollouts_per_s": 8 * 9000 / dg_ms * 1e3,
@@ -541,12 +554,15 @@ def phases_3d(dev, clock: PhaseClock) -> dict:
     ev_flops = k2_flops(256, SIM.eval_steps_3d, eout[9].cpu(), eout[10].cpu(),
                         eout[11].cpu())
     ev_bound, ev_bound_by = bound_ms(ev_flops, k2_bytes(16, 256, 128))
-    print(f"  K2 verify 16x128x32000: kernel {ev_ms:.0f} ms/call; snapshot "
-          f"bitwise equal to the 800-step squeeze; full/cheap steps per "
-          f"block {ev_full:.0f}/{ev_cheap:.0f} of 32,000; valid "
-          f"{eo['valid'][:, :nrot].mean():.4f}; bound {ev_bound:.2f} ms "
-          f"({ev_bound_by}); host per call: scene build + upload "
-          f"{host_scene_s:.2f}s, classes {host_metrics_s:.3f}s", flush=True)
+    print(f"  K2 verify 16x128x32000: kernel {ev_ms:.0f} ms/call "
+          f"({pr9('750.4 ms')}); snapshot bitwise equal to the 800-step "
+          f"squeeze; full/cheap steps per block {ev_full:.0f}/{ev_cheap:.0f} "
+          f"of 32,000; valid {eo['valid'][:, :nrot].mean():.4f}; bound "
+          f"{ev_bound:.2f} ms ({ev_bound_by}), "
+          f"{100.0 * ev_bound / ev_ms:.1f}% of it; Newton iterations a full "
+          f"step {float(eout[11].sum() / eout[9].sum()):.2f}; host per call: "
+          f"scene build + upload {host_scene_s:.2f}s, classes "
+          f"{host_metrics_s:.3f}s", flush=True)
 
     # shortened eval: kernel vs plain over 2,400 steps
     skw = dict(steps=3 * SIM.eval_regrasp_3d, **ekw)
@@ -694,6 +710,43 @@ def k1_jacobi_flops(p: int, s: int, steps: int, cfull, ccheap) -> float:
     return float(np.sum(cf * full + travel * 15 + steps * 20))
 
 
+def k1_inputs(dev) -> dict:
+    """Phase 10's inputs of K1 (scripts/probe_kernel_ab.py reads them too):
+    synthetic icon 0's contour with grippers 0-7 as scenes over the
+    9,088-pose grid (the datagen shape), and grippers 100-115 normalised
+    (``pts``) and, from those, as scenes, with 360 orientations padded to
+    384 poses (the verification shape). Poses lie on
+    ``dev``; the scenes stay on the host, so that the caller builds their
+    arrays (``rollout2d.scene_arrays``, which takes the calibration of
+    ``engine2d.SOLVER``) under the solver it sets."""
+    import torch
+
+    from dgdm_tpu_torch.geom.contour import extract_contours, synthetic_icon
+    from dgdm_tpu_torch.geom.fingers import (denormalize_y, normalize_y,
+                                             sample_gripper_2d)
+    from dgdm_tpu_torch.sim import datagen, engine2d
+
+    contour = extract_contours(synthetic_icon(0))
+    scenes8 = datagen.stack_scenes(
+        [engine2d.make_scene(*sample_gripper_2d(i), contour)
+         for i in range(8)])
+    ys = np.stack([np.concatenate(sample_gripper_2d(100 + i))
+                   for i in range(16)])
+    pts = normalize_y(ys)
+    scenes16 = datagen.stack_scenes(
+        [engine2d.make_scene(yi[:7], yi[7:], contour)
+         for yi in denormalize_y(pts)])
+    thetas = (np.linspace(-1.0, 1.0, 360) * np.pi + np.pi).astype(
+        np.float32)
+    th_p = datagen.pad_poses(thetas[:, None])[:, 0]
+    eposes = np.stack([np.zeros_like(th_p), np.zeros_like(th_p), th_p], -1)
+    return {"contour": contour, "scenes8": scenes8,
+            "poses": torch.as_tensor(
+                datagen.pad_poses(engine2d.pose_grid()), device=dev),
+            "pts": pts, "scenes16": scenes16,
+            "eposes": torch.as_tensor(eposes, device=dev)}
+
+
 def demo_contour() -> np.ndarray:
     """The object of scripts/demo_grad_design.py (100 points)."""
     ang = np.linspace(0, 2 * np.pi, 100, endpoint=False)
@@ -761,9 +814,7 @@ def phase_jacobi_design(dev) -> dict:
     from dgdm_tpu_torch.core.config import GRIPPER_2D, SIM
     from dgdm_tpu_torch.design import graddesign
     from dgdm_tpu_torch.eval.simeval import sim_eval_batch_2d
-    from dgdm_tpu_torch.geom.contour import extract_contours, synthetic_icon
-    from dgdm_tpu_torch.geom.fingers import (denormalize_y, normalize_y,
-                                             sample_gripper_2d)
+    from dgdm_tpu_torch.geom.fingers import sample_gripper_2d
     from dgdm_tpu_torch.sim import datagen, engine2d, rollout2d
     from dgdm_tpu_torch.sim.rollout2d_ref import profile_batch_ref
     from dgdm_tpu_torch.sim.types import to_device
@@ -774,15 +825,12 @@ def phase_jacobi_design(dev) -> dict:
     try:
         t_phase = time.perf_counter()
         # ---- (a) datagen shape: 8 x 9,088 x 200, icon 0, FITTED_2D -------
-        contour = extract_contours(synthetic_icon(0))
-        arrs8 = rollout2d.scene_arrays(datagen.stack_scenes(
-            [engine2d.make_scene(*sample_gripper_2d(i), contour)
-             for i in range(8)]), device=dev)
+        inp = k1_inputs(dev)
+        contour, poses = inp["contour"], inp["poses"]
+        arrs8 = rollout2d.scene_arrays(inp["scenes8"], device=dev)
         check(float(arrs8[3][0, 0, 9])
               == float(np.float32(engine2d.FITTED_2D["k_contact"])),
               "the Jacobi calibration (FITTED_2D) in the scalar slots")
-        poses = torch.as_tensor(datagen.pad_poses(engine2d.pose_grid()),
-                                device=dev)
         dg_ms, res = timed_cuda(lambda: rollout2d.rollout(*arrs8, poses),
                                 reps=5)
         dg_plan = dict(rollout2d.LAST_PLAN)
@@ -805,8 +853,9 @@ def phase_jacobi_design(dev) -> dict:
                             res_np["cfull"], res_np["ccheap"]),
             k1_bytes(8, contour.shape[0], s_, 9088))
         print(f"  K1 Jacobi datagen 8x9088x200: {plan}; kernel {dg_ms:.2f} "
-              f"ms/call, plain {dg_plain_ms:.0f} ms, bound {dg_bound:.2f} ms "
-              f"({dg_bound_by}); full steps per block "
+              f"ms/call ({pr9('85.3 ms')}), plain {dg_plain_ms:.0f} ms, bound "
+              f"{dg_bound:.2f} ms ({dg_bound_by}), "
+              f"{100.0 * dg_bound / dg_ms:.1f}% of it; full steps per block "
               f"{res_np['cfull'][:, ::128].mean():.1f} of 200", flush=True)
         gold = np.load(os.path.join(ROOT, "tests", "fixtures",
                                     "rollout2d_jacobi_golden.npz"))
@@ -827,9 +876,7 @@ def phase_jacobi_design(dev) -> dict:
         for k in rollout2d.KERNEL_LAUNCHES:
             rollout2d.KERNEL_LAUNCHES[k] = 0
         # (b) verification through sim_eval_batch_2d: 16 x 360 (384) x 8,000
-        ys = np.stack([np.concatenate(sample_gripper_2d(100 + i))
-                       for i in range(16)])
-        pts = normalize_y(ys)
+        pts = inp["pts"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = sim_eval_batch_2d(pts, [contour], device=dev)
@@ -957,16 +1004,8 @@ def phase_jacobi_design(dev) -> dict:
             bitwise(f"K1 {solver} 96 orientations 2x128x200 (the main path's "
                     f"call)", kout, (r[0], torch.stack(r[1:3], -1), r[3],
                                      torch.stack(r[4:6], -1)), range(4))
-        y = denormalize_y(pts)
-        arrs16 = rollout2d.scene_arrays(datagen.stack_scenes(
-            [engine2d.make_scene(yi[:7], yi[7:], contour) for yi in y]),
-            device=dev)
-        thetas = (np.linspace(-1.0, 1.0, 360) * np.pi + np.pi).astype(
-            np.float32)
-        th_p = datagen.pad_poses(thetas[:, None])[:, 0]
-        eposes = torch.as_tensor(
-            np.stack([np.zeros_like(th_p), np.zeros_like(th_p), th_p], -1),
-            device=dev)
+        arrs16 = rollout2d.scene_arrays(inp["scenes16"], device=dev)
+        eposes = inp["eposes"]
         ekw = dict(steps=SIM.eval_steps_2d, regrasp_every=SIM.eval_regrasp_2d,
                    snapshot_step=SIM.eval_regrasp_2d)
         ev_ms, ev = timed_cuda(lambda: rollout2d.rollout(*arrs16, eposes,
@@ -1000,8 +1039,9 @@ def phase_jacobi_design(dev) -> dict:
             k1_bytes(16, contour.shape[0], s_, 384))
         print(f"  K1 Jacobi verify 16x384x8000: {chosen(rollout2d)}; "
               f"sim_eval_batch_2d {ev_call_s:.2f}s on the host clock, "
-              f"kernel {ev_ms:.1f} ms, bound {ev_bound:.2f} ms "
-              f"({ev_bound_by}); full steps per block "
+              f"kernel {ev_ms:.1f} ms ({pr9('262.6 ms')}), bound "
+              f"{ev_bound:.2f} ms ({ev_bound_by}), "
+              f"{100.0 * ev_bound / ev_ms:.1f}% of it; full steps per block "
               f"{ev_np['cfull'][:, ::128].mean():.0f} of 8,000", flush=True)
         # the pure engine's cost on the card, both solvers
         base = to_device(scenes["start"], dev)
@@ -1196,7 +1236,7 @@ def pure_step_cost(dev, scenes, grid) -> dict:
 
 
 def k2_inputs(dev) -> dict:
-    """Phase 11's inputs of K2 (scripts/probe_k2_jacobi.py reads them too):
+    """Phase 11's inputs of K2 (scripts/probe_kernel_ab.py reads them too):
     the mug with grippers 0-7 as scenes over the 9,088-pose grid (the
     datagen shape), and grippers 100-115 normalised (``pts``) and as scenes,
     with ``nrot`` = 45 orientations (``thetas``) padded to 128 poses (the
@@ -1454,12 +1494,16 @@ def phase_3d_solvers(dev) -> dict:
             k2_flops(256, SIM.steps_3d, traw[9].cpu(), traw[10].cpu(),
                      traw[11].cpu()), k2_bytes(8, 256, 9088))
         print(f"  K2 newton_tol datagen 8x9088x800: {chosen(rollout3d)}; "
-              f"kernel {tol_ms:.1f} ms (the fixed count of "
-              f"{rollout3d.NEWTON_KERNEL_ITERS3}: {fix_ms:.1f} ms), bound "
-              f"{c_bound:.2f} ms ({c_bound_by}), plain {c_plain_s:.1f}s; "
-              f"Newton iterations a full step per block: mean "
-              f"{per.mean():.2f}, max {per.max():.2f} (fixed count: "
-              f"{float(fraw[11][:, ::128].sum() / fraw[9][:, ::128].sum()):.2f})"
+              f"kernel {tol_ms:.1f} ms ("
+              f"{pr9('2,095.9 ms and 4.59 iterations a full step')}; the "
+              f"fixed count of {rollout3d.NEWTON_KERNEL_ITERS3}: "
+              f"{fix_ms:.1f} ms), bound "
+              f"{c_bound:.2f} ms ({c_bound_by}), "
+              f"{100.0 * c_bound / tol_ms:.1f}% of it, plain "
+              f"{c_plain_s:.1f}s; Newton iterations a full step per block: "
+              f"mean {per.mean():.2f}, max {per.max():.2f} (fixed count: "
+              f"{float(fraw[11][:, ::128].sum() / fraw[9][:, ::128].sum()):.2f}"
+              f")"
               f"; full steps per block {cf.mean():.1f} (fixed "
               f"{float(fraw[9][:, ::128].float().mean()):.1f})", flush=True)
         check(len(np.unique(ci)) > 1, "iteration counts differ between "
@@ -2414,6 +2458,9 @@ def main() -> int:
              "rollout3d": inst3[0][0], "rollout3d_jacobi": inst3[1][0],
              "rollout3d_newton_tol": inst3[2][0]}
     registers = {k: v[0] for k, v in ptxas.items()}
+    check(max(registers.values()) <= 128,
+          f"at most 128 registers a thread (two 256-thread or one 512-thread "
+          f"block an SM): {registers}")
     for lib in libraries.values():
         lib.get()
 

@@ -49,12 +49,30 @@
 // shuffle min over the G lanes, exact in any order), the mean-field plane
 // unloading, then 6 projected-Jacobi iterations, each three passes (contour
 // points; supports' planar friction; supports' torsion) whose float64 sums
-// feed the next. The accumulators live across the iterations in the slab:
-// 12 floats a contour point (geometry, solve weights, lam_n, lam_t) and 3 a
-// support point (lam_sx, lam_sy, lam_w): 96 KB a block at 100 points and 64
-// supports, two blocks an SM. The launcher refuses a count that does not fit
-// a block (P > 272 at 64 supports on the H100). Not tuned: it only has to
-// be right.
+// feed the next. Everything a sweep reads and none writes is computed once
+// a step with the plain version's expressions (so it rounds the same): each
+// contour point's geometry, solve weights, clamped impulse and cap, and its
+// lever-arm products rxn and rxt, in the slab (12 floats a contour point);
+// each support's rotated lever arm, sw * mass, sw * inertia and its two
+// caps (the load's divide, once a support a step), in registers. The
+// impulses of a lane's first kJMaxK = 8 contour points and kJMaxS = 4
+// supports live in registers (the sweep loops unrolled; 100 points and 64
+// supports at G = 16 are 7 and 4 a lane), those of any further points in
+// the slab, whose size is that of a design with none in registers: 12
+// floats a contour point and 3 a support point, 96 KB a block at 100 points
+// and 64 supports, two blocks an SM; the launcher refuses a count that does
+// not fit a block (P > 272 at 64 supports on the H100). Each pass reduces
+// its sums as one vector (rollout::group_sum_vec: 7, 7, 7 and 5 float64
+// exchanges for passes A and C, the contour and the planar sweep, where 6,
+// 6, 5 and 3 butterflies take 24, 24, 20 and 12); torsion's one sum keeps
+// the butterfly. Measured on an NVIDIA H100 80GB HBM3 at 700 W in one
+// process against the design before (everything but the geometry and
+// weights recomputed in each sweep, impulses in the slab, one butterfly a
+// sum; scripts/probe_kernel_ab.py): 65.8 against 85.5 ms at 8 pairs x
+// 9,088 poses x 200 steps, 202-213 against 261-270 ms at 16 x 384 x 8,000,
+// the outputs bitwise equal; 122 registers against 80, 0 spills either way.
+// The registers were chosen so: 4 contour points' impulses in registers
+// (117 registers) tied with 8, 2 supports (109) were 13-15% slower.
 //
 // Numerics: float32 state and elementwise physics, compiled without fast
 // math and with -fmad=false, so that each expression rounds like the plain
@@ -552,15 +570,104 @@ __device__ __forceinline__ void cheap_solve(
 // the solve's: me_n -> w_c me_n, me_t -> w_c me_t, tgt, the elastic
 // impulse (scaled by the clamp in pass C), depth_el -> the crack-capture
 // cap, vn0 -> lam_n, act -> lam_t), then kJSup floats a support point
-// (lam_sx, lam_sy, lam_w), each in the thread's own column.
+// (lam_sx, lam_sy, lam_w), each in the thread's own column. The sweeps hold
+// the impulses of a lane's first kJMaxK contour points and the impulses and
+// step constants of its first kJMaxS support points in registers (the point
+// loops unrolled); for those contour points pass C puts the lever-arm
+// products rxn and rxt in the slots of lam_n and lam_t, and those supports'
+// slab slots stay unused. Points beyond them (more than kJMaxK * G contour
+// or kJMaxS * G support points) keep their impulses in the slab and
+// recompute rxn, rxt and the support constants in each sweep, so the slab,
+// and the point counts the launcher accepts, are those of a design with no
+// registers held.
 constexpr int kJHeld = 12;
 constexpr int kJSup = 3;
 enum { kRx, kRy, kNx, kNy, kSl, kWcn, kWct, kTgt, kImp, kCapr, kLamN, kLamT };
+constexpr int kRxn = kLamN, kRxt = kLamT;
+constexpr int kJMaxK = 8;
+constexpr int kJMaxS = 4;
+
+// One contour point's sweep update (pallas2d.py:263-289): its normal and
+// friction impulses lam_n, lam_t (in/out) and its share of the five sums.
+template <int T>
+__device__ __forceinline__ void jacobi_contour(const float* f, float rxn,
+                                               float rxt, float mu_f,
+                                               const float* u, float& lam_n,
+                                               float& lam_t,
+                                               double (&a)[5]) {
+  const float rx = f[kRx * T], ry = f[kRy * T], nx = f[kNx * T],
+              ny = f[kNy * T];
+  const float sl = f[kSl * T];
+  const float tx = -ny, ty = nx;
+  const float qd_cc = sl != 0.0f ? u[3] : u[4];
+  const float vpx = u[0] - u[2] * ry;
+  const float vpy = u[1] + u[2] * rx - qd_cc;
+  const float vn = vpx * nx + vpy * ny;
+  const float vt = vpx * tx + vpy * ty;
+  const float new_n = mx(lam_n + f[kWcn * T] * (f[kTgt * T] - vn), 0.0f);
+  const float d_n = new_n - lam_n;
+  const float cap = mu_f * (new_n + f[kImp * T]) + f[kCapr * T];
+  const float new_t = clampf(lam_t - f[kWct * T] * vt, -cap, cap);
+  const float d_t = new_t - lam_t;
+  const float ix = d_n * nx + d_t * tx;
+  const float iy = d_n * ny + d_t * ty;
+  a[0] = a[0] + (double)ix;
+  a[1] = a[1] + (double)iy;
+  a[2] = a[2] + (double)(d_n * rxn + d_t * rxt);
+  a[3] = a[3] + (double)(sl * iy);
+  a[4] = a[4] + (double)((1.0f - sl) * iy);
+  lam_n = new_n;
+  lam_t = new_t;
+}
+
+// The constants of support k that a step's sweeps read: its rotated lever
+// arm, sw * mass, the planar cap, sw * inertia and the torsion cap, with the
+// expressions of the plain version (load = sw n_total / (1 + unload grip)).
+struct SupConst {
+  float rsx, rsy, swm, cap_s, swi, cap_w;
+};
+
+__device__ __forceinline__ void support_const(const Shared& sh,
+                                              const Pair& pc, const Lane& L,
+                                              int k, float n_total,
+                                              float grip, float dt,
+                                              SupConst& c) {
+  c.rsx = sh.sbx[k] * L.c - sh.sby[k] * L.s;
+  c.rsy = sh.sbx[k] * L.s + sh.sby[k] * L.c;
+  const float load = sh.sw[k] * n_total / (1.0f + pc.unload * grip);
+  c.swm = sh.sw[k] * pc.mass;
+  c.cap_s = pc.mu_plane * load * dt;
+  c.swi = sh.sw[k] * pc.inertia;
+  c.cap_w = pc.mu_torsion * load * dt;
+}
+
+// One support's planar friction update: lam_sx, lam_sy in/out, its share of
+// the three sums.
+__device__ __forceinline__ void jacobi_planar(const SupConst& c,
+                                              const float* u, float& lam_sx,
+                                              float& lam_sy,
+                                              double (&a)[3]) {
+  const float vsx = u[0] - u[2] * c.rsy;
+  const float vsy = u[1] + u[2] * c.rsx;
+  float nsx = lam_sx - c.swm * vsx;
+  float nsy = lam_sy - c.swm * vsy;
+  const float nrm = sqrtf(nsx * nsx + nsy * nsy + 1e-20f);
+  const float sc = mn(1.0f, c.cap_s / nrm);
+  nsx = nsx * sc;
+  nsy = nsy * sc;
+  const float d_sx = nsx - lam_sx, d_sy = nsy - lam_sy;
+  a[0] = a[0] + (double)d_sx;
+  a[1] = a[1] + (double)d_sy;
+  a[2] = a[2] + (double)(c.rsx * d_sy - c.rsy * d_sx);
+  lam_sx = nsx;
+  lam_sy = nsy;
+}
 
 // Projected Jacobi with the explicit elastic wedge impulse
 // (pallas2d.py:221-334): u = (vx, vy, om, qdl, qdr) in/out, from the
 // step's start velocities. Lane `sub` takes the contour points and the
-// support points sub, sub + G, ...
+// support points sub, sub + G, ... Each pass reduces its sums as one vector
+// (rollout::group_sum_vec), torsion's single sum by the butterfly.
 template <int G>
 __device__ __forceinline__ void jacobi_solve(
     const Shared& sh, const Pair& pc, const Rollout2DParams& prm,
@@ -570,38 +677,45 @@ __device__ __forceinline__ void jacobi_solve(
   const float d_imp = prm.impedance, dt = prm.dt;
   const float n_total = L.n_total;
   // ---- pass A: geometry and the unclamped elastic impulse ----
-  double s_act = 0.0, s_ex = 0.0, s_ey = 0.0, s_er = 0.0, s_el = 0.0,
-         s_err = 0.0;
-  for (int p = sub, k = 0; p < P; p += G, ++k) {
-    Contact q;
-    contact_at(sh, pc, prm, L, p, q);
-    float tgt = (1.0f - d_imp * prm.b_base * dt) * q.vn0
-        + d_imp * dt * prm.k_base * q.depth;
-    float depth_el = q.act * clampf(q.depth, 0.0f, prm.depth_el_cap);
-    float v_capn = d_imp * dt * pc.k_con * depth_el;
-    float dv_el = mn(mx(d_imp * dt * (pc.k_con * depth_el - pc.b_con * q.vn0),
-                        0.0f),
-                     mx(v_capn - q.vn0, 0.0f));
-    float imp = q.act * q.me_n * dv_el;
-    float sl = q.is_l ? 1.0f : 0.0f;
-    s_act = s_act + (double)q.act;
-    s_ex = s_ex + (double)(imp * q.nx);
-    s_ey = s_ey + (double)(imp * q.ny);
-    s_er = s_er + (double)(imp * q.rxn);
-    s_el = s_el + (double)(sl * imp * q.ny);
-    s_err = s_err + (double)((1.0f - sl) * imp * q.ny);
-    float* f = slab + k * kJHeld * T;
-    f[kRx * T] = q.rx; f[kRy * T] = q.ry; f[kNx * T] = q.nx;
-    f[kNy * T] = q.ny; f[kSl * T] = sl; f[kWcn * T] = q.me_n;
-    f[kWct * T] = q.me_t; f[kTgt * T] = tgt; f[kImp * T] = imp;
-    f[kCapr * T] = depth_el; f[kLamN * T] = q.vn0; f[kLamT * T] = q.act;
+  float cnt, dvx_u, dvy_u, dom_u, dqdl_u, dqdr_u;
+  {
+    // act, the impulse's x, y, moment, left and right jaw parts
+    double s[6];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) s[q] = 0.0;
+    for (int p = sub, k = 0; p < P; p += G, ++k) {
+      Contact q;
+      contact_at(sh, pc, prm, L, p, q);
+      float tgt = (1.0f - d_imp * prm.b_base * dt) * q.vn0
+          + d_imp * dt * prm.k_base * q.depth;
+      float depth_el = q.act * clampf(q.depth, 0.0f, prm.depth_el_cap);
+      float v_capn = d_imp * dt * pc.k_con * depth_el;
+      float dv_el = mn(mx(d_imp * dt * (pc.k_con * depth_el - pc.b_con * q.vn0),
+                          0.0f),
+                       mx(v_capn - q.vn0, 0.0f));
+      float imp = q.act * q.me_n * dv_el;
+      float sl = q.is_l ? 1.0f : 0.0f;
+      s[0] = s[0] + (double)q.act;
+      s[1] = s[1] + (double)(imp * q.nx);
+      s[2] = s[2] + (double)(imp * q.ny);
+      s[3] = s[3] + (double)(imp * q.rxn);
+      s[4] = s[4] + (double)(sl * imp * q.ny);
+      s[5] = s[5] + (double)((1.0f - sl) * imp * q.ny);
+      float* f = slab + k * kJHeld * T;
+      f[kRx * T] = q.rx; f[kRy * T] = q.ry; f[kNx * T] = q.nx;
+      f[kNy * T] = q.ny; f[kSl * T] = sl; f[kWcn * T] = q.me_n;
+      f[kWct * T] = q.me_t; f[kTgt * T] = tgt; f[kImp * T] = imp;
+      f[kCapr * T] = depth_el; f[kLamN * T] = q.vn0; f[kLamT * T] = q.act;
+    }
+    float t[6];
+    rollout::group_sum_vec<G, 6>(s, t);
+    cnt = mx(t[0], 1.0f);
+    dvx_u = t[1] * pc.inv_m;
+    dvy_u = t[2] * pc.inv_m;
+    dom_u = t[3] * pc.inv_i;
+    dqdl_u = -t[4] * pc.inv_fml;
+    dqdr_u = -t[5] * pc.inv_fmr;
   }
-  const float cnt = mx(group_sum<G>(s_act), 1.0f);
-  const float dvx_u = group_sum<G>(s_ex) * pc.inv_m;
-  const float dvy_u = group_sum<G>(s_ey) * pc.inv_m;
-  const float dom_u = group_sum<G>(s_er) * pc.inv_i;
-  const float dqdl_u = -group_sum<G>(s_el) * pc.inv_fml;
-  const float dqdr_u = -group_sum<G>(s_err) * pc.inv_fmr;
   // ---- pass B: the global energy clamp, a min over the points ----
   float lo = INFINITY;
   for (int p = sub, k = 0; p < P; p += G, ++k) {
@@ -618,114 +732,143 @@ __device__ __forceinline__ void jacobi_solve(
   }
   const float s_clamp = clampf(rollout::group_min<G>(lo), 0.0f, 1.0f);
   // ---- pass C: the clamped impulse, the solve's weights ----
-  double s_g = 0.0;
-  s_ex = 0.0; s_ey = 0.0; s_er = 0.0; s_el = 0.0; s_err = 0.0;
-  for (int p = sub, k = 0; p < P; p += G, ++k) {
-    float* f = slab + k * kJHeld * T;
-    float rx = f[kRx * T], ry = f[kRy * T], nx = f[kNx * T], ny = f[kNy * T];
-    float sl = f[kSl * T];
-    float imp = s_clamp * f[kImp * T];
-    float w_c = f[kLamT * T] / cnt;
-    float me_t = f[kWct * T];
-    float rxn = rx * ny - ry * nx;
-    s_g = s_g + (double)imp;
-    s_ex = s_ex + (double)(imp * nx);
-    s_ey = s_ey + (double)(imp * ny);
-    s_er = s_er + (double)(imp * rxn);
-    s_el = s_el + (double)(sl * imp * ny);
-    s_err = s_err + (double)((1.0f - sl) * imp * ny);
-    f[kWcn * T] = w_c * f[kWcn * T];
-    f[kWct * T] = w_c * me_t;
-    f[kImp * T] = imp;
-    f[kCapr * T] = pc.rough * me_t * mn(f[kCapr * T], prm.rough_sat);
-    f[kLamN * T] = 0.0f;
-    f[kLamT * T] = 0.0f;
-  }
-  const float grip = group_sum<G>(s_g) / (dt * pc.mass * prm.gravity);
-  u[0] = u[0] + group_sum<G>(s_ex) * pc.inv_m;
-  u[1] = u[1] + group_sum<G>(s_ey) * pc.inv_m;
-  u[2] = u[2] + group_sum<G>(s_er) * pc.inv_i;
-  // L.uu[3..4] = qd + dt * f * inv_fm, the servo's unconstrained update
-  u[3] = L.uu[3] - group_sum<G>(s_el) * pc.inv_fml;
-  u[4] = L.uu[4] - group_sum<G>(s_err) * pc.inv_fmr;
-  for (int k = sub, j = 0; k < S; k += G, ++j) {
-    float* f = sup + j * kJSup * T;
-    f[0] = 0.0f; f[T] = 0.0f; f[2 * T] = 0.0f;
-  }
-  // plane load of support k (mean-field unloading by the grip)
-  auto load = [&](int k) {
-    return sh.sw[k] * n_total / (1.0f + pc.unload * grip);
-  };
-
-  for (int it = 0; it < prm.solver_iters; ++it) {
-    // ---- contour points: normal and friction impulses ----
-    double s_ix = 0.0, s_iy = 0.0, s_ir = 0.0, s_il = 0.0, s_irr = 0.0;
+  float grip;
+  {
+    // the grip load, then the clamped impulse's x, y, moment, jaw parts
+    double s[6];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) s[q] = 0.0;
     for (int p = sub, k = 0; p < P; p += G, ++k) {
       float* f = slab + k * kJHeld * T;
       float rx = f[kRx * T], ry = f[kRy * T], nx = f[kNx * T], ny = f[kNy * T];
       float sl = f[kSl * T];
-      float tx = -ny, ty = nx;
+      float imp = s_clamp * f[kImp * T];
+      float w_c = f[kLamT * T] / cnt;
+      float me_t = f[kWct * T];
       float rxn = rx * ny - ry * nx;
-      float rxt = rx * ty - ry * tx;
-      float qd_cc = sl != 0.0f ? u[3] : u[4];
-      float vpx = u[0] - u[2] * ry;
-      float vpy = u[1] + u[2] * rx - qd_cc;
-      float vn = vpx * nx + vpy * ny;
-      float vt = vpx * tx + vpy * ty;
-      float lam_n = f[kLamN * T], lam_t = f[kLamT * T];
-      float new_n = mx(lam_n + f[kWcn * T] * (f[kTgt * T] - vn), 0.0f);
-      float d_n = new_n - lam_n;
-      float cap = pc.mu_finger * (new_n + f[kImp * T]) + f[kCapr * T];
-      float new_t = clampf(lam_t - f[kWct * T] * vt, -cap, cap);
-      float d_t = new_t - lam_t;
-      float ix = d_n * nx + d_t * tx;
-      float iy = d_n * ny + d_t * ty;
-      s_ix = s_ix + (double)ix;
-      s_iy = s_iy + (double)iy;
-      s_ir = s_ir + (double)(d_n * rxn + d_t * rxt);
-      s_il = s_il + (double)(sl * iy);
-      s_irr = s_irr + (double)((1.0f - sl) * iy);
-      f[kLamN * T] = new_n;
-      f[kLamT * T] = new_t;
+      s[0] = s[0] + (double)imp;
+      s[1] = s[1] + (double)(imp * nx);
+      s[2] = s[2] + (double)(imp * ny);
+      s[3] = s[3] + (double)(imp * rxn);
+      s[4] = s[4] + (double)(sl * imp * ny);
+      s[5] = s[5] + (double)((1.0f - sl) * imp * ny);
+      f[kWcn * T] = w_c * f[kWcn * T];
+      f[kWct * T] = w_c * me_t;
+      f[kImp * T] = imp;
+      f[kCapr * T] = pc.rough * me_t * mn(f[kCapr * T], prm.rough_sat);
+      if (k < kJMaxK) {
+        // the impulses live in registers: the slots hold rxn and rxt
+        float tx = -ny, ty = nx;
+        f[kRxn * T] = rxn;
+        f[kRxt * T] = rx * ty - ry * tx;
+      } else {
+        f[kLamN * T] = 0.0f;
+        f[kLamT * T] = 0.0f;
+      }
     }
-    u[0] = u[0] + group_sum<G>(s_ix) * pc.inv_m;
-    u[1] = u[1] + group_sum<G>(s_iy) * pc.inv_m;
-    u[2] = u[2] + group_sum<G>(s_ir) * pc.inv_i;
-    u[3] = u[3] - group_sum<G>(s_il) * pc.inv_fml;
-    u[4] = u[4] - group_sum<G>(s_irr) * pc.inv_fmr;
+    float t[6];
+    rollout::group_sum_vec<G, 6>(s, t);
+    grip = t[0] / (dt * pc.mass * prm.gravity);
+    u[0] = u[0] + t[1] * pc.inv_m;
+    u[1] = u[1] + t[2] * pc.inv_m;
+    u[2] = u[2] + t[3] * pc.inv_i;
+    // L.uu[3..4] = qd + dt * f * inv_fm, the servo's unconstrained update
+    u[3] = L.uu[3] - t[4] * pc.inv_fml;
+    u[4] = L.uu[4] - t[5] * pc.inv_fmr;
+  }
+  for (int k = sub + kJMaxS * G, j = kJMaxS; k < S; k += G, ++j) {
+    float* f = sup + j * kJSup * T;
+    f[0] = 0.0f; f[T] = 0.0f; f[2 * T] = 0.0f;
+  }
+  // the first kJMaxS supports of the lane: constants and impulses
+  SupConst sc[kJMaxS];
+  float ls[kJMaxS][3];
+#pragma unroll
+  for (int j = 0; j < kJMaxS; ++j) {
+    if (sub + j * G < S)
+      support_const(sh, pc, L, sub + j * G, n_total, grip, dt, sc[j]);
+#pragma unroll
+    for (int q = 0; q < 3; ++q) ls[j][q] = 0.0f;
+  }
+  // the first kJMaxK contour points' impulses
+  float lc[kJMaxK][2];
+#pragma unroll
+  for (int k = 0; k < kJMaxK; ++k) lc[k][0] = lc[k][1] = 0.0f;
+  const float mu_f = pc.mu_finger;
+
+  for (int it = 0; it < prm.solver_iters; ++it) {
+    // ---- contour points: normal and friction impulses ----
+    {
+      double a[5];
+#pragma unroll
+      for (int q = 0; q < 5; ++q) a[q] = 0.0;
+#pragma unroll
+      for (int k = 0; k < kJMaxK; ++k) {
+        if (sub + k * G < P) {
+          const float* f = slab + k * kJHeld * T;
+          jacobi_contour<T>(f, f[kRxn * T], f[kRxt * T], mu_f, u, lc[k][0],
+                            lc[k][1], a);
+        }
+      }
+      for (int p = sub + kJMaxK * G, k = kJMaxK; p < P; p += G, ++k) {
+        float* f = slab + k * kJHeld * T;
+        const float rx = f[kRx * T], ry = f[kRy * T], nx = f[kNx * T],
+                    ny = f[kNy * T];
+        const float tx = -ny, ty = nx;
+        float lam_n = f[kLamN * T], lam_t = f[kLamT * T];
+        jacobi_contour<T>(f, rx * ny - ry * nx, rx * ty - ry * tx, mu_f, u,
+                          lam_n, lam_t, a);
+        f[kLamN * T] = lam_n;
+        f[kLamT * T] = lam_t;
+      }
+      float t[5];
+      rollout::group_sum_vec<G, 5>(a, t);
+      u[0] = u[0] + t[0] * pc.inv_m;
+      u[1] = u[1] + t[1] * pc.inv_m;
+      u[2] = u[2] + t[2] * pc.inv_i;
+      u[3] = u[3] - t[3] * pc.inv_fml;
+      u[4] = u[4] - t[4] * pc.inv_fmr;
+    }
     // ---- supports: planar friction ----
-    double s_sx = 0.0, s_sy = 0.0, s_sm = 0.0;
-    for (int k = sub, j = 0; k < S; k += G, ++j) {
-      float* f = sup + j * kJSup * T;
-      float rsx = sh.sbx[k] * L.c - sh.sby[k] * L.s;
-      float rsy = sh.sbx[k] * L.s + sh.sby[k] * L.c;
-      float vsx = u[0] - u[2] * rsy;
-      float vsy = u[1] + u[2] * rsx;
-      float lam_sx = f[0], lam_sy = f[T];
-      float nsx = lam_sx - sh.sw[k] * pc.mass * vsx;
-      float nsy = lam_sy - sh.sw[k] * pc.mass * vsy;
-      float cap_s = pc.mu_plane * load(k) * dt;
-      float nrm = sqrtf(nsx * nsx + nsy * nsy + 1e-20f);
-      float sc = mn(1.0f, cap_s / nrm);
-      nsx = nsx * sc;
-      nsy = nsy * sc;
-      float d_sx = nsx - lam_sx, d_sy = nsy - lam_sy;
-      s_sx = s_sx + (double)d_sx;
-      s_sy = s_sy + (double)d_sy;
-      s_sm = s_sm + (double)(rsx * d_sy - rsy * d_sx);
-      f[0] = nsx;
-      f[T] = nsy;
+    {
+      double a[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) a[q] = 0.0;
+#pragma unroll
+      for (int j = 0; j < kJMaxS; ++j)
+        if (sub + j * G < S) jacobi_planar(sc[j], u, ls[j][0], ls[j][1], a);
+      for (int k = sub + kJMaxS * G, j = kJMaxS; k < S; k += G, ++j) {
+        float* f = sup + j * kJSup * T;
+        SupConst c;
+        support_const(sh, pc, L, k, n_total, grip, dt, c);
+        float lam_sx = f[0], lam_sy = f[T];
+        jacobi_planar(c, u, lam_sx, lam_sy, a);
+        f[0] = lam_sx;
+        f[T] = lam_sy;
+      }
+      float t[3];
+      rollout::group_sum_vec<G, 3>(a, t);
+      u[0] = u[0] + t[0] * pc.inv_m;
+      u[1] = u[1] + t[1] * pc.inv_m;
+      u[2] = u[2] + t[2] * pc.inv_i;
     }
-    u[0] = u[0] + group_sum<G>(s_sx) * pc.inv_m;
-    u[1] = u[1] + group_sum<G>(s_sy) * pc.inv_m;
-    u[2] = u[2] + group_sum<G>(s_sm) * pc.inv_i;
     // ---- supports: torsion ----
     double s_w = 0.0;
-    for (int k = sub, j = 0; k < S; k += G, ++j) {
+#pragma unroll
+    for (int j = 0; j < kJMaxS; ++j) {
+      if (sub + j * G < S) {
+        const float new_w = clampf(ls[j][2] - sc[j].swi * u[2], -sc[j].cap_w,
+                                   sc[j].cap_w);
+        s_w = s_w + (double)(new_w - ls[j][2]);
+        ls[j][2] = new_w;
+      }
+    }
+    for (int k = sub + kJMaxS * G, j = kJMaxS; k < S; k += G, ++j) {
       float* f = sup + j * kJSup * T;
-      float cap_w = pc.mu_torsion * load(k) * dt;
-      float lam_w = f[2 * T];
-      float new_w = clampf(lam_w - sh.sw[k] * pc.inertia * u[2], -cap_w, cap_w);
+      SupConst c;
+      support_const(sh, pc, L, k, n_total, grip, dt, c);
+      const float lam_w = f[2 * T];
+      const float new_w = clampf(lam_w - c.swi * u[2], -c.cap_w, c.cap_w);
       s_w = s_w + (double)(new_w - lam_w);
       f[2 * T] = new_w;
     }

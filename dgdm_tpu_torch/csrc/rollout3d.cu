@@ -34,8 +34,10 @@
 // bivariate Horner surface evaluations, normals, contact frames, effective
 // masses), which does not change during a solve. So each lane computes its
 // points' geometry once per solve into a slab of shared memory (12 floats a
-// point, 8 points a lane at P = 256: 192 KB a block, so one block an SM) and
-// the four passes over the points of each Newton iteration read it back.
+// point, and a 13th for the point's friction factor at the iterate, which
+// pass A computes and passes B and C read; 8 points a lane at P = 256:
+// 208 KB a block, so one block an SM) and the four passes over the points
+// of each Newton iteration read it back.
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W against a body that
 // recomputed the geometry in every pass (since removed): 60 ms against 81 ms
 // at 16 pairs x 128 poses x 2,400 steps, 656 against 909 ms at 8 x 9,088 x
@@ -45,9 +47,22 @@
 //
 // What binds are registers: 128 a thread, so that an SM holds 16 warps. Each
 // pass keeps at most 26 float64 sums live (the eight finger-column sums are
-// spread over passes A, B and C for that) and
-// parks the rounded sums in shared memory (Lane::park) until the 8x8 system
-// is assembled; the pair's constants (Pair), the step's fixed quantities and
+// spread over passes A, B and C for that), reduces them as one vector (a
+// reduce-scatter: 27 float64 exchanges a lane for each of passes A, B and
+// C, where their 26, 26 and 25 butterflies take 130, 130 and 125; the line
+// search's 6 energies 8, the cheap solve's 27 sums 28), and the lane on
+// which each total ends parks it in shared memory (Lane::park,
+// rollout::group_sum_park) until the 8x8 system is assembled; only the
+// grip load and the energies reach every lane. Measured on an NVIDIA H100
+// 80GB HBM3 at 700 W in one process against the body before (one butterfly
+// a sum, lane 0 parking each total, the friction factor computed in passes
+// A, B and C, two votes an adaptive iteration; scripts/probe_kernel_ab.py):
+// 580 against 656-659 ms at 8 pairs x 9,088 poses x 800 steps, 661 against
+// 746 ms at 16 x 128 x 32,000, 1,675 against 2,079 ms at the first shape
+// with newton_iters 6 and newton_tol 1e-4 (T(n) = a + b n over n
+// iterations a full step: b 307 against 398 ms), the outputs bitwise equal;
+// 122 and 123 registers (newton_tol) against 122, 0 spills either way. The pair's constants
+// (Pair), the step's fixed quantities and
 // the rollout's state that a solve does not touch (Lane) wait in shared
 // memory too, and the lane's index within its rollout is read from %laneid
 // where it is used. Nothing of a step touches device memory.
@@ -55,10 +70,12 @@
 // Adaptive Newton (Solver = kNewtonTol). The Newton body repeats while fewer
 // than newton_iters iterations have run and the step size, the largest |du|
 // of the whole 128-pose group times the group's largest accepted line-search
-// step, is above newton_tol: two group reductions an iteration (a vote on
-// the accepted steps, and a max of |du| as unsigned bit patterns across the
-// warps, the block and the cluster). The iterations taken are counted in
-// the rollout's Lane. With newton_tol = 0 the launcher runs kNewton, whose
+// step, is above newton_tol: one group vote an iteration
+// (GroupVote::any2_max: each warp's accept bits and its max of |du| as
+// unsigned bit patterns behind one block barrier, both in one exchange
+// across the cluster behind one cluster barrier, in 4 * kCluster words of
+// shared memory only this instantiation has). The iterations taken are
+// counted in the rollout's Lane. With newton_tol = 0 the launcher runs kNewton, whose
 // code is the fixed-count loop alone.
 //
 // Jacobi (Solver = kJacobi). Every normal step is a full solve (no cheap
@@ -83,10 +100,10 @@
 // H100 80GB HBM3 at 700 W against the design before (12 floats a point:
 // the narrow phase's normal and depth and the impulses, everything else
 // recomputed in each of the 19 passes of a step; since replaced), in one
-// process (scripts/probe_k2_jacobi.py): 2,293 against 3,997 ms at 8 pairs
-// x 9,088 poses x 800 steps, 4,828 against 8,419 ms at 16 x 128 x 32,000,
-// the outputs bitwise equal; 114 registers against 72, 0 spills either
-// way. The launcher refuses more than 8 points a lane (P > 256), whose
+// process (the A/B probe, now scripts/probe_kernel_ab.py): 2,293 against
+// 3,997 ms at 8 pairs x 9,088 poses x 800 steps, 4,828 against 8,419 ms at
+// 16 x 128 x 32,000, the outputs bitwise equal; 114 registers against 72, 0
+// spills either way. The launcher refuses more than 8 points a lane (P > 256), whose
 // slab would not fit a block either.
 //
 // Numerics: float32 state and elementwise physics, compiled without fast
@@ -118,7 +135,12 @@ constexpr int kScal = 32;    // per-pair scalar slots (rollout3d.scene_arrays_3d
 constexpr int kNewton = 0;
 constexpr int kJacobi = 1;
 constexpr int kNewtonTol = 2;
-constexpr int kWarpSlots = 2 * 32;   // max_nonneg's per-warp words
+constexpr int kWarpSlots = 2 * 32;   // per-warp vote words (GroupVote)
+// the adaptive loop's vote words (GroupVote::any2_max): two a block slot, by
+// parity; only that instantiation has them
+__host__ __device__ constexpr int tol_slots(int solver, int cs) {
+  return solver == kNewtonTol ? 4 * cs : 0;
+}
 
 }  // namespace
 
@@ -175,6 +197,13 @@ struct Shared {
   const float* pbz;
 };
 
+// The rounded sums of a full-solve iteration's passes, parked in Lane::park
+// by their owner lanes: pass A's 21 Hessian sums of rows 0-2, finger
+// columns 0-3 and the grip load; pass B's finger columns 4-6, 14 Hessian
+// sums of rows 3-7 and 9 gradient sums; pass C's finger column 7 and its
+// 5 + 6 + 13 friction and plane sums.
+constexpr int kParkA = 0, kParkB = 26, kParkC = 52;
+
 // Quantities of one rollout's normal step that stay fixed during its solve,
 // and the solve's unconstrained velocity uu. One per rollout in shared
 // memory: lane 0 of the rollout fills it, all its lanes read it (one
@@ -188,7 +217,7 @@ struct Lane {
   float iw00, iw01, iw02, iw11, iw12, iw22;  // world inertia
   float px, py, pz, vx, vy, vz, ox, oy, oz, ql, qr, qdl, qdr;
   float uu[8];
-  float park[21 + 8 + 14 + 9 + 24];
+  float park[kParkC + 25];
   // the rollout's state that a solve does not touch (orientation, snapshot,
   // wy span) waits here while the solve runs
   float keep[12];
@@ -368,11 +397,14 @@ __device__ __forceinline__ void full_geo(const Shared& sh,
   g.sr = 1.0f - g.sl;
 }
 
-// A lane's contact geometry, held across the passes of a full solve: 12 of FGeo's 16 floats per point in
-// the thread's own column of a shared-memory slab ((point, field) rows of T
-// threads, so a warp's accesses fall in distinct banks); the other four are
-// recomputed with the expressions full_geo uses.
-constexpr int kHeld = 12;
+// A lane's contact geometry, held across the passes of a full solve: 12 of
+// FGeo's 16 floats per point in the thread's own column of a shared-memory
+// slab ((point, field) rows of T threads, so a warp's accesses fall in
+// distinct banks); the other four are recomputed with the expressions
+// full_geo uses. A 13th float a point (kFac) holds the point's finger
+// friction factor at the iterate: pass A computes it, passes B and C read it.
+constexpr int kFac = 12;
+constexpr int kHeld = 13;
 
 template <int T>
 __device__ __forceinline__ void geo_store(float* slab, int k, const FGeo& g) {
@@ -467,48 +499,45 @@ __device__ __forceinline__ float e_quad(const Pair& pc, const Lane& L,
 // (pallas3d.py:497-737): u = (vx, vy, vz, ox, oy, oz, qdl, qdr), in/out.
 // Lane r of the rollout's G lanes takes the points r, r + G, ...
 // The lane's geometry is computed once, ahead of the passes, into `slab`
-// (the thread's column), and the passes read it back. With Tol the loop
-// ends early once the group's step size falls to prm.newton_tol
-// (pallas3d.py:703-731). Returns the iterations run.
+// (the thread's column), and the passes read it back; pass A adds each
+// point's friction factor at the iterate (kFac), which passes B and C read.
+// Each pass reduces its float64 sums as one vector whose owner lanes park
+// the totals in L.park (rollout::group_sum_park); only the grip load and
+// the line-search energies reach every lane. With Tol the loop ends early
+// once the group's step size falls to prm.newton_tol (pallas3d.py:703-731):
+// one vote an iteration carries the accepted steps and the largest |du|.
+// Returns the iterations run.
 template <int G, bool Tol>
 __device__ int full_solve(const Shared& sh, const Pair& pc,
                           const Rollout3DParams& prm, Lane& L, int P,
                           float* slab, const float* uu, float* u,
                           rollout::GroupVote<rollout::Layout<G>::kCluster>& vote,
-                          unsigned* warp_slots) {
+                          unsigned* warp_slots, unsigned* pair_slots) {
   constexpr int kThreads = rollout::Layout<G>::kThreads;
   for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
     FGeo g;
     full_geo(sh, pc, prm, L, p, g);
     geo_store<kThreads>(slab, k, g);
   }
-  float* park_a = L.park;            // 21 Hessian sums of rows 0-2
-  float* park_fc = park_a + 21;      // 8 finger-column sums
-  float* park_b = park_fc + 8;       // 14 Hessian sums of rows 3-7
-  float* park_gs = park_b + 14;      // 9 gradient sums
-  float* park_c = park_gs + 9;       // 5 + 6 + 13 sums of pass C
+  float* park = L.park;
   for (int it = 0; it < prm.newton_iters; ++it) {
     // the rollout's lanes have read the last iteration's parked sums
     __syncwarp();
-    // ---- pass A: grip load, Hessian rows 0-2, finger columns 0-3 (the
+    // ---- pass A: Hessian rows 0-2, finger columns 0-3, the grip load (the
     // eight finger-column sums are spread over passes A, B and C so that no
     // pass holds more than 26 float64 sums) ----
     float grip;
     {
-      double s_lam = 0.0;
-      double hA[21];
-      double dfc[4];
+      double s[26];
 #pragma unroll
-      for (int q = 0; q < 21; ++q) hA[q] = 0.0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) dfc[q] = 0.0;
+      for (int q = 0; q < 26; ++q) s[q] = 0.0;
       for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
         FGeo g;
         geo_load<kThreads>(slab, k, g);
         Terms t;
         terms(g, u, t);
-        s_lam = s_lam + (double)t.lamf;
         float fac_f = fac_finger(pc, g, t);
+        slab[(k * kHeld + kFac) * kThreads] = fac_f;
         float cn_f = g.w_nf * step01(t.resf > 0.0f) - fac_f;
         float jf[8] = {g.nfx, g.nfy, g.nfz, g.cfx, g.cfy, g.cfz,
                        -g.nfy * g.sl, -g.nfy * g.sr};
@@ -517,185 +546,143 @@ __device__ int full_solve(const Shared& sh, const Pair& pc,
         for (int a = 0; a < 3; ++a) {
           float yf = cn_f * jf[a];
 #pragma unroll
-          for (int b = a; b < 8; ++b) hA[q++] += (double)(yf * jf[b]);
+          for (int b = a; b < 8; ++b) s[q++] += (double)(yf * jf[b]);
         }
-        dfc[0] += (double)(fac_f * (-g.sl));
-        dfc[1] += (double)(fac_f * (-g.sr));
-        dfc[2] += (double)(fac_f * g.sl * g.rz);
-        dfc[3] += (double)(fac_f * g.sl * (-g.rx));
+        s[21] += (double)(fac_f * (-g.sl));
+        s[22] += (double)(fac_f * (-g.sr));
+        s[23] += (double)(fac_f * g.sl * g.rz);
+        s[24] += (double)(fac_f * g.sl * (-g.rx));
+        s[25] = s[25] + (double)t.lamf;
       }
-      grip = group_sum<G>(s_lam) / pc.mg_dt;
-#pragma unroll
-      for (int q = 0; q < 21; ++q) {
-        float v = group_sum<G>(hA[q]);
-        if (lane_in_rollout<G>() == 0) park_a[q] = v;
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        float v = group_sum<G>(dfc[k]);
-        if (lane_in_rollout<G>() == 0) park_fc[k] = v;
-      }
+      const float v = rollout::group_sum_park<G, 26>(s, park + kParkA);
+      grip = __shfl_sync(0xffffffffu, v,
+                         rollout::detail::vec_owner<G / 2, 26>(25), G) /
+             pc.mg_dt;
     }
     const float scale_p = 1.0f / (1.0f + pc.unload * grip);
     const float capp_scale = pc.mu_plane * scale_p;
 
-    // ---- pass B: Hessian rows 3-7, gradient terms without the plane cap --
+    // ---- pass B: finger columns 4-6, Hessian rows 3-7, gradient terms
+    // without the plane cap ----
     {
-      double hB[14];
-      double dgs[9];
-      double dfc[3];
+      double s[26];
 #pragma unroll
-      for (int q = 0; q < 14; ++q) hB[q] = 0.0;
-#pragma unroll
-      for (int q = 0; q < 9; ++q) dgs[q] = 0.0;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) dfc[q] = 0.0;
+      for (int q = 0; q < 26; ++q) s[q] = 0.0;
       for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
         FGeo g;
         geo_load<kThreads>(slab, k, g);
         Terms t;
         terms(g, u, t);
-        float fac_f = fac_finger(pc, g, t);
+        const float fac_f = slab[(k * kHeld + kFac) * kThreads];
         float cn_f = g.w_nf * step01(t.resf > 0.0f) - fac_f;
         float jf[8] = {g.nfx, g.nfy, g.nfz, g.cfx, g.cfy, g.cfz,
                        -g.nfy * g.sl, -g.nfy * g.sr};
-        int q = 0;
+        s[0] += (double)(fac_f * g.sr * g.rz);
+        s[1] += (double)(fac_f * g.sr * (-g.rx));
+        s[2] += (double)(fac_f * g.sl);
+        int q = 3;
 #pragma unroll
         for (int a = 3; a < 8; ++a) {
           float yf = cn_f * jf[a];
 #pragma unroll
           for (int b = a; b < 8; ++b) {
             if (a == 6 && b == 7) continue;
-            hB[q++] += (double)(yf * jf[b]);
+            s[q++] += (double)(yf * jf[b]);
           }
         }
-        dgs[0] += (double)(t.lamf * g.nfx);
-        dgs[1] += (double)(t.lamf * g.nfy);
-        dgs[2] += (double)(t.lamf * g.nfz + t.lamp);
-        dgs[3] += (double)(fac_f * t.vtfz);
-        dgs[4] += (double)(t.lamf * g.cfx + t.lamp * g.ry);
-        dgs[5] += (double)(t.lamf * g.cfy - t.lamp * g.rx);
-        dgs[6] += (double)(t.lamf * g.cfz);
-        dgs[7] += (double)(g.sl * (t.lamf * g.nfy - fac_f * t.vtfy));
-        dgs[8] += (double)(g.sr * (t.lamf * g.nfy - fac_f * t.vtfy));
-        dfc[0] += (double)(fac_f * g.sr * g.rz);
-        dfc[1] += (double)(fac_f * g.sr * (-g.rx));
-        dfc[2] += (double)(fac_f * g.sl);
+        s[17] += (double)(t.lamf * g.nfx);
+        s[18] += (double)(t.lamf * g.nfy);
+        s[19] += (double)(t.lamf * g.nfz + t.lamp);
+        s[20] += (double)(fac_f * t.vtfz);
+        s[21] += (double)(t.lamf * g.cfx + t.lamp * g.ry);
+        s[22] += (double)(t.lamf * g.cfy - t.lamp * g.rx);
+        s[23] += (double)(t.lamf * g.cfz);
+        s[24] += (double)(g.sl * (t.lamf * g.nfy - fac_f * t.vtfy));
+        s[25] += (double)(g.sr * (t.lamf * g.nfy - fac_f * t.vtfy));
       }
-#pragma unroll
-      for (int q = 0; q < 14; ++q) {
-        float v = group_sum<G>(hB[q]);
-        if (lane_in_rollout<G>() == 0) park_b[q] = v;
-      }
-#pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        float v = group_sum<G>(dgs[k]);
-        if (lane_in_rollout<G>() == 0) park_gs[k] = v;
-      }
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        float v = group_sum<G>(dfc[k]);
-        if (lane_in_rollout<G>() == 0) park_fc[4 + k] = v;
-      }
+      rollout::group_sum_park<G, 26>(s, park + kParkB);
     }
 
-    // ---- pass C: friction terms with the plane cap, plane Hessian ----
+    // ---- pass C: finger column 7, friction terms with the plane cap, plane
+    // Hessian ----
     {
-      double dgc[5], dhp[6], dhf[13];
-      double dfc7 = 0.0;
+      double s[25];
 #pragma unroll
-      for (int q = 0; q < 5; ++q) dgc[q] = 0.0;
-#pragma unroll
-      for (int q = 0; q < 6; ++q) dhp[q] = 0.0;
-#pragma unroll
-      for (int q = 0; q < 13; ++q) dhf[q] = 0.0;
+      for (int q = 0; q < 25; ++q) s[q] = 0.0;
       for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
         FGeo g;
         geo_load<kThreads>(slab, k, g);
         Terms t;
         terms(g, u, t);
         const float rx = g.rx, ry = g.ry, rz = g.rz;
-        float fac_f = fac_finger(pc, g, t);
+        const float fac_f = slab[(k * kHeld + kFac) * kThreads];
         float fac_p = fac_plane(g, t, capp_scale);
         float vtpx = t.fx, vtpy = t.pvy;
-        dgc[0] += (double)(fac_f * t.vtfx + fac_p * vtpx);
-        dgc[1] += (double)(fac_f * t.vtfy + fac_p * vtpy);
-        dgc[2] += (double)(fac_f * (ry * t.vtfz - rz * t.vtfy) +
-                           fac_p * ((-rz) * vtpy));
-        dgc[3] += (double)(fac_f * (rz * t.vtfx - rx * t.vtfz) +
-                           fac_p * (rz * vtpx));
-        dgc[4] += (double)(fac_f * (rx * t.vtfy - ry * t.vtfx) +
-                           fac_p * (rx * vtpy - ry * vtpx));
+        s[0] += (double)(fac_f * g.sr);
+        s[1] += (double)(fac_f * t.vtfx + fac_p * vtpx);
+        s[2] += (double)(fac_f * t.vtfy + fac_p * vtpy);
+        s[3] += (double)(fac_f * (ry * t.vtfz - rz * t.vtfy) +
+                         fac_p * ((-rz) * vtpy));
+        s[4] += (double)(fac_f * (rz * t.vtfx - rx * t.vtfz) +
+                         fac_p * (rz * vtpx));
+        s[5] += (double)(fac_f * (rx * t.vtfy - ry * t.vtfx) +
+                         fac_p * (rx * vtpy - ry * vtpx));
         float cn_p = g.w_np * step01(t.resp > 0.0f) - fac_p;
         float yp_n = cn_p * ry;
-        dhp[0] += (double)cn_p;
-        dhp[1] += (double)yp_n;
-        dhp[2] += (double)((-cn_p) * rx);
-        dhp[3] += (double)(yp_n * ry);
-        dhp[4] += (double)((-yp_n) * rx);
-        dhp[5] += (double)(cn_p * rx * rx);
+        s[6] += (double)cn_p;
+        s[7] += (double)yp_n;
+        s[8] += (double)((-cn_p) * rx);
+        s[9] += (double)(yp_n * ry);
+        s[10] += (double)((-yp_n) * rx);
+        s[11] += (double)(cn_p * rx * rx);
         float facs = fac_f + fac_p;
-        dhf[0] += (double)facs;
-        dhf[1] += (double)(facs * rz);
-        dhf[2] += (double)(facs * (-ry));
-        dhf[3] += (double)(facs * (-rz));
-        dhf[4] += (double)(facs * rx);
-        dhf[5] += (double)(facs * ry);
-        dhf[6] += (double)(facs * (-rx));
-        dhf[7] += (double)(facs * (ry * ry + rz * rz));
-        dhf[8] += (double)(facs * (rx * rx + rz * rz));
-        dhf[9] += (double)(facs * (rx * rx + ry * ry));
-        dhf[10] += (double)(facs * ((-rx) * ry));
-        dhf[11] += (double)(facs * ((-rx) * rz));
-        dhf[12] += (double)(facs * ((-ry) * rz));
-        dfc7 += (double)(fac_f * g.sr);
+        s[12] += (double)facs;
+        s[13] += (double)(facs * rz);
+        s[14] += (double)(facs * (-ry));
+        s[15] += (double)(facs * (-rz));
+        s[16] += (double)(facs * rx);
+        s[17] += (double)(facs * ry);
+        s[18] += (double)(facs * (-rx));
+        s[19] += (double)(facs * (ry * ry + rz * rz));
+        s[20] += (double)(facs * (rx * rx + rz * rz));
+        s[21] += (double)(facs * (rx * rx + ry * ry));
+        s[22] += (double)(facs * ((-rx) * ry));
+        s[23] += (double)(facs * ((-rx) * rz));
+        s[24] += (double)(facs * ((-ry) * rz));
       }
-      {
-        float v = group_sum<G>(dfc7);
-        if (lane_in_rollout<G>() == 0) park_fc[7] = v;
-      }
-#pragma unroll
-      for (int k = 0; k < 5; ++k) {
-        float v = group_sum<G>(dgc[k]);
-        if (lane_in_rollout<G>() == 0) park_c[k] = v;
-      }
-#pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        float v = group_sum<G>(dhp[k]);
-        if (lane_in_rollout<G>() == 0) park_c[5 + k] = v;
-      }
-#pragma unroll
-      for (int k = 0; k < 13; ++k) {
-        float v = group_sum<G>(dhf[k]);
-        if (lane_in_rollout<G>() == 0) park_c[11 + k] = v;
-      }
+      rollout::group_sum_park<G, 25>(s, park + kParkC);
     }
 
     // ---- gradient and Hessian, in the Pallas kernel's order of adds ----
     __syncwarp();
     float h[8][8], fc[8], gs[9];
-    const float* gc = park_c;
-    const float* hp = park_c + 5;
-    const float* hf = park_c + 11;
+    const float* gc = park + kParkC + 1;
+    const float* hp = gc + 5;
+    const float* hf = hp + 6;
     {
+      const float* pa = park + kParkA;
+      const float* pb = park + kParkB;
       int q = 0;
 #pragma unroll
       for (int a = 0; a < 3; ++a)
 #pragma unroll
-        for (int b = a; b < 8; ++b) h[a][b] = park_a[q++];
-      q = 0;
+        for (int b = a; b < 8; ++b) h[a][b] = pa[q++];
+      q = 3;
 #pragma unroll
       for (int a = 3; a < 8; ++a)
 #pragma unroll
         for (int b = a; b < 8; ++b) {
           if (a == 6 && b == 7) continue;
-          h[a][b] = park_b[q++];
+          h[a][b] = pb[q++];
         }
       h[6][7] = 0.0f;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) fc[k] = park_fc[k];
+      for (int k = 0; k < 4; ++k) fc[k] = pa[21 + k];
 #pragma unroll
-      for (int k = 0; k < 9; ++k) gs[k] = park_gs[k];
+      for (int k = 0; k < 3; ++k) fc[4 + k] = pb[k];
+      fc[7] = park[kParkC];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) gs[k] = pb[17 + k];
     }
     float d3 = u[3] - uu[3], d4 = u[4] - uu[4], d5 = u[5] - uu[5];
     float ix = L.iw00 * d3 + L.iw01 * d4 + L.iw02 * d5;
@@ -762,28 +749,36 @@ __device__ int full_solve(const Shared& sh, const Pair& pc,
     }
 
     // ---- pass D: line-search energies of u, u1, u2 (caps at u) ----
-    double ef0 = 0.0, ep0 = 0.0, ef1 = 0.0, ep1 = 0.0, ef2 = 0.0, ep2 = 0.0;
-    for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
-      FGeo g;
-      geo_load<kThreads>(slab, k, g);
-      Terms t;
-      terms(g, u, t);
-      float capf = pc.mu_finger * t.lamf + g.rough_capn;
-      float capp = capp_scale * t.lamp;
-      float ef, ep;
-      energy_rows(pc, g, u, capf, capp, ef, ep);
-      ef0 += (double)ef;
-      ep0 += (double)ep;
-      energy_rows(pc, g, u1, capf, capp, ef, ep);
-      ef1 += (double)ef;
-      ep1 += (double)ep;
-      energy_rows(pc, g, u2, capf, capp, ef, ep);
-      ef2 += (double)ef;
-      ep2 += (double)ep;
+    float e0, e1, e2;
+    {
+      // finger and plane energy of u, u1, u2
+      double s[6];
+#pragma unroll
+      for (int q = 0; q < 6; ++q) s[q] = 0.0;
+      for (int p = lane_in_rollout<G>(), k = 0; p < P; p += G, ++k) {
+        FGeo g;
+        geo_load<kThreads>(slab, k, g);
+        Terms t;
+        terms(g, u, t);
+        float capf = pc.mu_finger * t.lamf + g.rough_capn;
+        float capp = capp_scale * t.lamp;
+        float ef, ep;
+        energy_rows(pc, g, u, capf, capp, ef, ep);
+        s[0] += (double)ef;
+        s[1] += (double)ep;
+        energy_rows(pc, g, u1, capf, capp, ef, ep);
+        s[2] += (double)ef;
+        s[3] += (double)ep;
+        energy_rows(pc, g, u2, capf, capp, ef, ep);
+        s[4] += (double)ef;
+        s[5] += (double)ep;
+      }
+      float t[6];
+      rollout::group_sum_vec<G, 6>(s, t);
+      e0 = e_quad(pc, L, u, uu) + t[0] + t[1];
+      e1 = e_quad(pc, L, u1, uu) + t[2] + t[3];
+      e2 = e_quad(pc, L, u2, uu) + t[4] + t[5];
     }
-    float e0 = e_quad(pc, L, u, uu) + group_sum<G>(ef0) + group_sum<G>(ep0);
-    float e1 = e_quad(pc, L, u1, uu) + group_sum<G>(ef1) + group_sum<G>(ep1);
-    float e2 = e_quad(pc, L, u2, uu) + group_sum<G>(ef2) + group_sum<G>(ep2);
     bool best12 = e1 <= e2;
     float eb = best12 ? e1 : e2;
     bool take_new = eb <= e0;
@@ -796,9 +791,12 @@ __device__ int full_solve(const Shared& sh, const Pair& pc,
       float mdv = 0.0f;
 #pragma unroll
       for (int a = 0; a < 8; ++a) mdv = mx(mdv, fabsf(dv[a]));
-      const int acc = vote.any2(take_new && best12, take_new && !best12);
+      float dmax;
+      const int acc = vote.template any2_max<kThreads / 32>(
+          take_new && best12, take_new && !best12, mdv, warp_slots,
+          pair_slots, dmax);
       const float alpha = (acc & 1) ? 1.0f : ((acc & 2) ? 0.5f : 0.0f);
-      const float step = vote.max_nonneg(mdv, warp_slots) * alpha;
+      const float step = dmax * alpha;
       if (!(step > prm.newton_tol)) return it + 1;
     }
   }
@@ -806,21 +804,20 @@ __device__ int full_solve(const Shared& sh, const Pair& pc,
 }
 
 // No finger contact reachable in the group: 3 Newton iterations on the
-// 6-DOF plane subproblem (pallas3d.py:739-859); u[6], u[7] stay.
+// 6-DOF plane subproblem (pallas3d.py:739-859); u[6], u[7] stay. The 27
+// point sums of an iteration and its 6 energies are each one vector
+// reduction.
 template <int G>
 __device__ void cheap_solve(const Shared& sh, const Pair& pc,
                             const Rollout3DParams& prm, Lane& L, int P,
                             const float* uu, float* u) {
   for (int it = 0; it < 3; ++it) {
-    float gq[8], hp[6], hf[13];
+    // gq[8], then hp[6], then hf[13]
+    float sums[27];
     {
-      double dgq[8], dhp[6], dhf[13];
+      double s[27];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) dgq[q] = 0.0;
-#pragma unroll
-      for (int q = 0; q < 6; ++q) dhp[q] = 0.0;
-#pragma unroll
-      for (int q = 0; q < 13; ++q) dhf[q] = 0.0;
+      for (int q = 0; q < 27; ++q) s[q] = 0.0;
       for (int p = lane_in_rollout<G>(); p < P; p += G) {
         PGeo g;
         float wy, wx, wz;
@@ -835,43 +832,41 @@ __device__ void cheap_solve(const Shared& sh, const Pair& pc,
         float vtpn = sqrtf(vpx * vpx + vpy * vpy + 1e-16f);
         float fac_p = mn(g.w_np, capp / vtpn);
         float fx = fac_p * vpx, fy = fac_p * vpy;
-        dgq[0] += (double)fx;
-        dgq[1] += (double)fy;
-        dgq[2] += (double)lamp;
-        dgq[3] += (double)(lamp * ry);
-        dgq[4] += (double)((-rz) * fy);
-        dgq[5] += (double)(lamp * rx);
-        dgq[6] += (double)(rz * fx);
-        dgq[7] += (double)(rx * fy - ry * fx);
+        s[0] += (double)fx;
+        s[1] += (double)fy;
+        s[2] += (double)lamp;
+        s[3] += (double)(lamp * ry);
+        s[4] += (double)((-rz) * fy);
+        s[5] += (double)(lamp * rx);
+        s[6] += (double)(rz * fx);
+        s[7] += (double)(rx * fy - ry * fx);
         float cn_p = g.w_np * step01(resp > 0.0f) - fac_p;
         float yp_n = cn_p * ry;
-        dhp[0] += (double)cn_p;
-        dhp[1] += (double)yp_n;
-        dhp[2] += (double)((-cn_p) * rx);
-        dhp[3] += (double)(yp_n * ry);
-        dhp[4] += (double)((-yp_n) * rx);
-        dhp[5] += (double)(cn_p * rx * rx);
-        dhf[0] += (double)fac_p;
-        dhf[1] += (double)(fac_p * rz);
-        dhf[2] += (double)(fac_p * (-ry));
-        dhf[3] += (double)(fac_p * (-rz));
-        dhf[4] += (double)(fac_p * rx);
-        dhf[5] += (double)(fac_p * ry);
-        dhf[6] += (double)(fac_p * (-rx));
-        dhf[7] += (double)(fac_p * (ry * ry + rz * rz));
-        dhf[8] += (double)(fac_p * (rx * rx + rz * rz));
-        dhf[9] += (double)(fac_p * (rx * rx + ry * ry));
-        dhf[10] += (double)(fac_p * ((-rx) * ry));
-        dhf[11] += (double)(fac_p * ((-rx) * rz));
-        dhf[12] += (double)(fac_p * ((-ry) * rz));
+        s[8] += (double)cn_p;
+        s[9] += (double)yp_n;
+        s[10] += (double)((-cn_p) * rx);
+        s[11] += (double)(yp_n * ry);
+        s[12] += (double)((-yp_n) * rx);
+        s[13] += (double)(cn_p * rx * rx);
+        s[14] += (double)fac_p;
+        s[15] += (double)(fac_p * rz);
+        s[16] += (double)(fac_p * (-ry));
+        s[17] += (double)(fac_p * (-rz));
+        s[18] += (double)(fac_p * rx);
+        s[19] += (double)(fac_p * ry);
+        s[20] += (double)(fac_p * (-rx));
+        s[21] += (double)(fac_p * (ry * ry + rz * rz));
+        s[22] += (double)(fac_p * (rx * rx + rz * rz));
+        s[23] += (double)(fac_p * (rx * rx + ry * ry));
+        s[24] += (double)(fac_p * ((-rx) * ry));
+        s[25] += (double)(fac_p * ((-rx) * rz));
+        s[26] += (double)(fac_p * ((-ry) * rz));
       }
-#pragma unroll
-      for (int k = 0; k < 8; ++k) gq[k] = group_sum<G>(dgq[k]);
-#pragma unroll
-      for (int k = 0; k < 6; ++k) hp[k] = group_sum<G>(dhp[k]);
-#pragma unroll
-      for (int k = 0; k < 13; ++k) hf[k] = group_sum<G>(dhf[k]);
+      rollout::group_sum_vec<G, 27>(s, sums);
     }
+    const float* gq = sums;
+    const float* hp = sums + 8;
+    const float* hf = sums + 14;
     float d3 = u[3] - uu[3], d4 = u[4] - uu[4], d5 = u[5] - uu[5];
     float ix = L.iw00 * d3 + L.iw01 * d4 + L.iw02 * d5;
     float iy = L.iw01 * d3 + L.iw11 * d4 + L.iw12 * d5;
@@ -920,28 +915,38 @@ __device__ void cheap_solve(const Shared& sh, const Pair& pc,
       cand[2][a] = u[a] + 0.5f * dv[a];
     }
     // energies of u, u1, u2 with the caps of u
-    double er[3] = {0.0, 0.0, 0.0}, eh[3] = {0.0, 0.0, 0.0};
-    for (int p = lane_in_rollout<G>(); p < P; p += G) {
-      PGeo g;
-      float wy, wx, wz;
-      plane_geo(sh, pc, prm, L, p, g, wy, wx, wz);
-      const float rx = g.rx, ry = g.ry, rz = g.rz;
-      float vpz0 = u[2] + u[3] * ry - u[4] * rx;
-      float capp = pc.mu_plane * (g.w_np * mx(g.tgt_pn - vpz0, 0.0f));
+    float en[3];
+    {
+      // er then eh of each candidate
+      double s[6];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float* v = cand[c];
-        float vpx = v[0] + v[4] * rz - v[5] * ry;
-        float vpy = v[1] + v[5] * rx - v[3] * rz;
-        float vpz = v[2] + v[3] * ry - v[4] * rx;
-        float res = mx(g.tgt_pn - vpz, 0.0f);
-        float vt2 = vpx * vpx + vpy * vpy;
-        er[c] += (double)(0.5f * g.w_np * res * res);
-        float vt = sqrtf(vt2 + 1e-16f);
-        float q = 0.5f * g.w_np * vt2;
-        float lin = capp * vt - 0.5f * capp * capp / mx(g.w_np, 1e-12f);
-        eh[c] += (double)((g.w_np * vt <= capp) ? q : lin);
+      for (int q = 0; q < 6; ++q) s[q] = 0.0;
+      for (int p = lane_in_rollout<G>(); p < P; p += G) {
+        PGeo g;
+        float wy, wx, wz;
+        plane_geo(sh, pc, prm, L, p, g, wy, wx, wz);
+        const float rx = g.rx, ry = g.ry, rz = g.rz;
+        float vpz0 = u[2] + u[3] * ry - u[4] * rx;
+        float capp = pc.mu_plane * (g.w_np * mx(g.tgt_pn - vpz0, 0.0f));
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float* v = cand[c];
+          float vpx = v[0] + v[4] * rz - v[5] * ry;
+          float vpy = v[1] + v[5] * rx - v[3] * rz;
+          float vpz = v[2] + v[3] * ry - v[4] * rx;
+          float res = mx(g.tgt_pn - vpz, 0.0f);
+          float vt2 = vpx * vpx + vpy * vpy;
+          s[2 * c] += (double)(0.5f * g.w_np * res * res);
+          float vt = sqrtf(vt2 + 1e-16f);
+          float q = 0.5f * g.w_np * vt2;
+          float lin = capp * vt - 0.5f * capp * capp / mx(g.w_np, 1e-12f);
+          s[2 * c + 1] += (double)((g.w_np * vt <= capp) ? q : lin);
+        }
       }
+      float t[6];
+      rollout::group_sum_vec<G, 6>(s, t);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) en[c] = t[2 * c] + t[2 * c + 1];
     }
     float e[3];
 #pragma unroll
@@ -952,9 +957,8 @@ __device__ void cheap_solve(const Shared& sh, const Pair& pc,
       float jx = L.iw00 * f3 + L.iw01 * f4 + L.iw02 * f5;
       float jy = L.iw01 * f3 + L.iw11 * f4 + L.iw12 * f5;
       float jz = L.iw02 * f3 + L.iw12 * f4 + L.iw22 * f5;
-      float en = group_sum<G>(er[c]) + group_sum<G>(eh[c]);
-      e[c] = en + 0.5f * (pc.mass * (e0 * e0 + e1 * e1 + e2 * e2) +
-                          f3 * jx + f4 * jy + f5 * jz);
+      e[c] = en[c] + 0.5f * (pc.mass * (e0 * e0 + e1 * e1 + e2 * e2) +
+                             f3 * jx + f4 * jy + f5 * jz);
     }
     bool b12 = e[1] <= e[2];
     float eb = b12 ? e[1] : e[2];
@@ -1303,7 +1307,9 @@ rollout3d_kernel(const float* __restrict__ coefs,     // (B, 2, 24, 4, 3)
   int* s_vote = reinterpret_cast<int*>(s_pair + kPairFloats);  // 2 * kCluster
   unsigned* warp_slots =
       reinterpret_cast<unsigned*>(s_vote + 2 * kCluster);    // kWarpSlots
-  float* s_lane = s_pair + kPairFloats + 2 * kCluster + kWarpSlots;
+  unsigned* t_slots = warp_slots + kWarpSlots;   // tol_slots(Solver, ...)
+  float* s_lane = s_pair + kPairFloats + 2 * kCluster + kWarpSlots +
+                  tol_slots(Solver, kCluster);
   float* s_pbx = s_lane + LO::kRollouts * kLaneStride;   // P
   float* s_pby = s_pbx + P;                     // P
   float* s_pbz = s_pby + P;                     // P
@@ -1498,7 +1504,7 @@ rollout3d_kernel(const float* __restrict__ coefs,     // (B, 2, 24, 4, 3)
         }
         if (any_f) {
           const int its = full_solve<G, Solver == kNewtonTol>(
-              sh, pc, prm, L, P, slab, uu, u, vote, warp_slots);
+              sh, pc, prm, L, P, slab, uu, u, vote, warp_slots, t_slots);
           if constexpr (Solver == kNewtonTol) {
             if (lane_in_rollout<G>() == 0) L.iters = L.iters + (float)its;
           }
@@ -1609,7 +1615,8 @@ extern "C" int rollout3d_launch(const float* coefs, const float* points,
       sizeof(float) * (2 * kTotSeg * kCoef + kScal + kPairFloats +
                        LO::kRollouts * kLaneStride + 3 * P +
                        held * LO::kThreads * (size_t)((P + G - 1) / G)) +
-      sizeof(int) * (2 * LO::kCluster + kWarpSlots);
+      sizeof(int) * (2 * LO::kCluster + kWarpSlots +
+                     tol_slots(prm.solver, LO::kCluster));
   const dim3 grid((N / kLane) * LO::kCluster, B);
   rollout::Plan* pl = reinterpret_cast<rollout::Plan*>(plan);
   if (prm.solver == kJacobi)

@@ -19,9 +19,11 @@
 // keeps half of the values it still holds at each stride and adds its
 // partner's partial of them, so that each value is added over the same
 // pairs of lanes as by the butterfly and has its bits; each total then
-// rounds once on the lane where it ended and is broadcast as a float32. For
-// 8 values over 32 lanes that is 9 float64 exchanges and 8 float32 ones,
-// where 8 butterflies take 40 float64 exchanges.
+// rounds once on the lane where it ended and is broadcast as a float32
+// (group_sum_vec), or is stored to shared memory by that lane alone
+// (group_sum_park). For 8 values over 32 lanes that is 9 float64 exchanges
+// and 8 float32 ones, where 8 butterflies take 40 float64 exchanges; for 26
+// values 27 float64 exchanges, where 26 butterflies take 130.
 //
 // Group votes. GroupVote ORs one or two bits over all 128 * G threads of a
 // pose group: __syncthreads_or inside each block, then threads
@@ -31,7 +33,8 @@
 // double-buffered by vote parity: a block can run at most one vote ahead of
 // a peer (it cannot pass the next cluster barrier before the peer arrives
 // there, and the peer arrives only after it has read the current slots), so
-// one barrier a vote is enough.
+// one barrier a vote is enough. GroupVote::any2_max carries two bits and a
+// max of non-negative floats in one such vote (two words a block slot).
 
 #pragma once
 
@@ -138,6 +141,28 @@ __host__ __device__ constexpr int vec_owner(int q) {
   }
 }
 
+// The inverse of vec_owner: the value (of C held at stride M, the first R of
+// them real) whose owner is `lane`, or -1 where the lane owns none (it holds
+// padding, or a butterfly copy of a total whose owner has the lower bits
+// clear).
+template <int M, int C, int R>
+__device__ __forceinline__ int vec_slot(int lane) {
+  if constexpr (R <= 0) {
+    return -1;
+  } else if constexpr (M == 0) {
+    return 0;
+  } else if constexpr (C == 1) {
+    return (lane & M) ? -1 : vec_slot<M / 2, 1, R>(lane);
+  } else {
+    constexpr int H = (C + 1) / 2;
+    if (lane & M) {
+      const int s = vec_slot<M / 2, H, R - H>(lane);
+      return s < 0 ? -1 : H + s;
+    }
+    return vec_slot<M / 2, H, (R < H ? R : H)>(lane);
+  }
+}
+
 }  // namespace detail
 
 // The totals of N float64 partial sums over the G lanes, each rounded once
@@ -155,6 +180,23 @@ __device__ __forceinline__ void group_sum_vec(double (&v)[N],
     for (int q = 0; q < N; ++q)
       out[q] = __shfl_sync(0xffffffffu, t, detail::vec_owner<G / 2, N>(q), G);
   }
+}
+
+// The same reduce-scatter, but no broadcast: the lane on which total q ends
+// (detail::vec_owner) stores it, rounded once to float32, to dst[q], one
+// predicated store a lane. Returns the rounded value the lane holds, so that
+// a caller broadcasts only the totals every lane needs:
+// __shfl_sync(0xffffffffu, t, detail::vec_owner<G / 2, N>(q), G). v is
+// consumed.
+template <int G, int N>
+__device__ __forceinline__ float group_sum_park(double (&v)[N], float* dst) {
+  static_assert(N <= G, "one total a lane at most");
+  const int lane = lane_in_rollout<G>();
+  detail::vec_stride<G / 2, N, N>(v, lane);
+  const float t = (float)v[0];
+  const int q = detail::vec_slot<G / 2, N, N>(lane);
+  if (q >= 0) dst[q] = t;
+  return t;
 }
 
 // NaN-propagating min / max over the G lanes (exact under any order).
@@ -205,40 +247,56 @@ struct GroupVote {
     return r;
   }
 
-  // the largest of the kCluster blocks' values (threads 0..kCluster-1 of
-  // each block hold their block's value; the slots are shared with the
-  // OR votes and their parity)
-  __device__ __forceinline__ unsigned across_max(unsigned mine) {
-    cg::cluster_group cluster = cg::this_cluster();
-    const int base = parity * CS;
-    if (threadIdx.x < CS) {
-      int* peer = cluster.map_shared_rank(
-          slots + base + (int)cluster.block_rank(), threadIdx.x);
-      *peer = (int)mine;
-    }
-    cluster.sync();
-    const volatile int* s = slots;
-    unsigned r = 0u;
-#pragma unroll
-    for (int k = 0; k < CS; ++k) r = max(r, (unsigned)s[base + k]);
-    parity ^= 1;
-    return r;
-  }
-
-  // Max over the pose group of non-negative floats (their bit patterns
-  // order as unsigned integers, +inf and NaN above every finite value):
-  // a warp reduction, the block's warps through `warp_slots` (2 * 32
-  // words of this block's shared memory, by vote parity), then the blocks
-  // of the cluster. Every thread of the cluster calls it.
-  __device__ __forceinline__ float max_nonneg(float v, unsigned* warp_slots) {
+  // Two independent bits (-> bit 0 | bit 1 << 1, as any2) and the max over
+  // the pose group of non-negative floats (into `vmax`; their bit patterns
+  // order as unsigned integers, +inf and NaN above every finite value), in
+  // one exchange: each warp's __any_sync bits and __reduce_max_sync of the
+  // bit patterns go to `warp_slots` (2 * 32 words by parity: W maxima, then
+  // W bit words), one block barrier, threads 0..kCluster-1 fold the W warps
+  // and store the block's max and bits into their block's two words in every
+  // block of the cluster (`pair_slots`: 4 * kCluster words of this block's
+  // shared memory, by the vote parity), one cluster barrier, and every
+  // thread folds the kCluster pairs. W is the number of warps a block.
+  template <int W>
+  __device__ __forceinline__ int any2_max(bool b0, bool b1, float v,
+                                          unsigned* warp_slots,
+                                          unsigned* pair_slots,
+                                          float& vmax) {
+    static_assert(2 * W <= 32, "warp_slots hold 32 words a parity");
+    const unsigned bits = (__any_sync(0xffffffffu, b0) ? 1u : 0u) |
+                          (__any_sync(0xffffffffu, b1) ? 2u : 0u);
     const unsigned w = __reduce_max_sync(0xffffffffu, __float_as_uint(v));
     unsigned* ws = warp_slots + parity * 32;
-    if ((threadIdx.x & 31) == 0) ws[threadIdx.x >> 5] = w;
+    if ((threadIdx.x & 31) == 0) {
+      ws[threadIdx.x >> 5] = w;
+      ws[W + (threadIdx.x >> 5)] = bits;
+    }
     __syncthreads();
-    unsigned b = 0u;
-    if (threadIdx.x < CS)
-      for (int k = 0; k < (int)(blockDim.x >> 5); ++k) b = max(b, ws[k]);
-    return __uint_as_float(across_max(b));
+    cg::cluster_group cluster = cg::this_cluster();
+    const int base = parity * 2 * CS;
+    if (threadIdx.x < CS) {
+      unsigned m = 0u, b = 0u;
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        m = max(m, ws[k]);
+        b |= ws[W + k];
+      }
+      unsigned* peer = cluster.map_shared_rank(
+          pair_slots + base + 2 * (int)cluster.block_rank(), threadIdx.x);
+      peer[0] = m;
+      peer[1] = b;
+    }
+    cluster.sync();
+    const volatile unsigned* s = pair_slots + base;
+    unsigned m = 0u, b = 0u;
+#pragma unroll
+    for (int k = 0; k < CS; ++k) {
+      m = max(m, s[2 * k]);
+      b |= s[2 * k + 1];
+    }
+    parity ^= 1;
+    vmax = __uint_as_float(m);
+    return (int)b;
   }
 
   // one bit

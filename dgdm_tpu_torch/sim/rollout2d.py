@@ -16,7 +16,8 @@ shared memory; ``LAST_PLAN`` holds the layout of the last launch. It has two
 instantiations, one per contact solver (``engine2d.SOLVER``, resolved at
 call time unless ``solver`` is given): the coupled Newton solve and the
 projected Jacobi solve (``pallas2d.py:221-334``), whose per-point
-accumulators also live in the shared-memory slab.
+impulses live in registers for a lane's first points and in the
+shared-memory slab beyond them.
 
 There is no fallback between the two: a CUDA tensor launches the kernel or
 raises. ``KERNEL_LAUNCHES`` counts kernel launches per instantiation:

@@ -144,8 +144,9 @@ def rollout_cuda(coefs, points, scalars, poses, steps, regrasp_every,
                  newton_tol: float = 0.0):
     """Launch csrc/rollout3d.cu on the current stream -> (12, B, N) float32.
     The launcher refuses a point count whose shared-memory slab does not fit
-    a block (P > 256 on the H100, 12 floats a point for each solver; the
-    Jacobi sweeps also hold at most 8 points a lane in registers)."""
+    a block (P > 256 on the H100: 13 floats a point for the Newton
+    instantiations, 12 for Jacobi, whose sweeps also hold at most 8 points
+    a lane in registers)."""
     inst = instantiation(solver, newton_tol)
     if newton_iters is None:
         newton_iters = NEWTON_KERNEL_ITERS3

@@ -1,0 +1,250 @@
+"""One instantiation of the hand-written rollout kernels against the same
+instantiation built from another checkout (an earlier commit's design), in
+one process on one card.
+
+    mkdir -p _parent && git archive <commit> | tar -x -C _parent
+    python scripts/probe_kernel_ab.py --other _parent --out F.json \\
+        [--kernel k2_newton] [--kernel k2_newton_tol] [--kernel k2_jacobi] \\
+        [--kernel k1_jacobi] [--kernel k1_newton]
+
+``--kernel`` (repeatable; all five when absent) names the instantiation:
+``k2_newton`` (``rollout3d_kernel<32, 0>`` of csrc/rollout3d.cu),
+``k2_newton_tol`` (``<32, 2>``, ``newton_iters`` 6, ``newton_tol`` 1e-4),
+``k2_jacobi`` (``<32, 1>``), ``k1_jacobi`` (``rollout2d_kernel<16, 1>``
+of csrc/rollout2d.cu) or ``k1_newton`` (``<16, 0>``). Both checkouts' sources are built with the port's
+nvcc flags, and each instantiation's registers and spill bytes are read
+from ``ptxas -v`` (``chip_smoke.ptxas_report``). For each kernel the two
+builds are held bitwise equal on every output plane at the point counts of
+its card tests (K2: the kernel's golden fixture's pairs and poses with
+their first 256, 200 and 17 points, 800 steps; K1: its fixture's with the
+contour repeated to 100, 272 and 17 points and 64 or 7 supports,
+200 steps), then timed in the order other, this, this, other (CUDA events,
+one call each, the outputs held bitwise equal) at chip_smoke.py's shapes,
+built by ``chip_smoke.k2_inputs`` and ``chip_smoke.k1_inputs``:
+
+- K2 datagen: grippers 0-7 x mug_small x the 9,088-pose grid x 800 steps
+  (``k2_newton``, ``k2_jacobi``; ``k2_newton_tol`` with its adaptive loop
+  and with the fixed count of one iteration, for the iterations a full step
+  and the time an iteration takes, T(n) = a + b n between the two);
+- K2 verification: grippers 100-115 x 45 orientations padded to 128 x
+  32,000 steps, regrasp and snapshot at 800 (``k2_newton``, ``k2_jacobi``),
+  and again at 15 grippers (the 16th cluster's second wave);
+- K1 datagen: icon 0 x grippers 0-7 x 9,088 poses x 200 steps; K1
+  verification: grippers 100-115 x 360 orientations padded to 384 x 8,000
+  steps, regrasp and snapshot at 200 (``k1_jacobi``, ``k1_newton``);
+- the Jacobi kernels' datagen shape with no sweeps (``solver_iters`` 0):
+  the passes before them and the step's other work.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+from dgdm_tpu_torch.core.config import SIM  # noqa: E402
+from dgdm_tpu_torch.sim import (engine2d, engine3d, rollout2d,  # noqa: E402
+                                rollout3d)
+from dgdm_tpu_torch.sim.cuda_lib import CudaLibrary  # noqa: E402
+
+# kernel -> (module, solver, keyword arguments, ptxas entry tag, golden)
+KERNELS = {
+    "k2_newton": (rollout3d, "newton", {}, "ILi32ELi0EE",
+                  "rollout3d_golden.npz"),
+    "k2_newton_tol": (rollout3d, "newton",
+                      {"newton_iters": 6, "newton_tol": 1e-4},
+                      "ILi32ELi2EE", "rollout3d_newton_tol_golden.npz"),
+    "k2_jacobi": (rollout3d, "jacobi", {}, "ILi32ELi1EE",
+                  "rollout3d_jacobi_golden.npz"),
+    "k1_jacobi": (rollout2d, "jacobi", {}, "ILi16ELi1EE",
+                  "rollout2d_jacobi_golden.npz"),
+    "k1_newton": (rollout2d, "newton", {}, "ILi16ELi0EE",
+                  "rollout2d_golden.npz"),
+}
+
+
+def library(mod, checkout: str) -> CudaLibrary:
+    src = os.path.basename(mod.LIBRARY.src)
+    lib = CudaLibrary(src, mod._bind)
+    lib.src = os.path.join(checkout, "dgdm_tpu_torch", "csrc", src)
+    lib.name = f"{mod.LIBRARY.name}_other"
+    return lib
+
+
+def same(x, y) -> list:
+    """Indices of the output planes that differ."""
+    return [i for i, (a, b) in enumerate(zip(x, y)) if not torch.equal(a, b)]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--other", required=True,
+                    help="checkout whose csrc/*.cu are compared")
+    ap.add_argument("--kernel", action="append", choices=sorted(KERNELS))
+    ap.add_argument("--out", default="")
+    args = ap.parse_args(argv)
+    kernels = args.kernel or list(KERNELS)
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    res: dict = {"card": smi, "build": {}}
+    mods = {KERNELS[k][0] for k in kernels}
+    libs = {}
+    for mod in sorted(mods, key=lambda m: m.__name__):
+        libs[mod] = {"this": mod.LIBRARY,
+                     "other": library(mod, os.path.abspath(args.other))}
+        for which, lib in libs[mod].items():
+            t0 = time.perf_counter()
+            lib.build(force=True)
+            regs = chip_smoke.ptxas_report(
+                f"{lib.name} ({which})", lib,
+                n_kernels=2 if mod is rollout2d else 3)
+            res["build"][f"{lib.name} ({which})"] = {
+                "seconds": time.perf_counter() - t0,
+                "ptxas": {e: list(v) for e, v in regs.items()}}
+            lib.get()
+
+    def run(mod, which, *a, **kw):
+        mod.LIBRARY = libs[mod][which]
+        try:
+            out = mod.rollout_cuda(*a, **kw)
+            return out, dict(mod.LAST_PLAN)
+        finally:
+            mod.LIBRARY = libs[mod]["this"]
+
+    def timed(fn):
+        return chip_smoke.timed_cuda(fn, reps=1, warm=False)
+
+    def ab(name, mod, args_, kw):
+        """other, this, this, other; the outputs bitwise equal."""
+        ms, outs, plans = {"this": [], "other": []}, {}, {}
+        for which in ("other", "this", "this", "other"):
+            t, (o, plan) = timed(lambda: run(mod, which, *args_, **kw))
+            ms[which].append(t)
+            outs[which], plans[which] = o, plan
+        diff = same(outs["this"], outs["other"])
+        print(f"  {name}: ms {ms}; planes differing {diff}; plans {plans}",
+              flush=True)
+        if diff:
+            raise SystemExit(f"{name}: the two kernels differ on {diff}")
+        return {"ms": ms, "plans": plans}, outs["this"]
+
+    k2 = k1 = None
+    for kname in kernels:
+        mod, solver, kw, tag, fixture = KERNELS[kname]
+        # (registers, spill bytes) of the instantiation in both builds
+        r: dict = {"ptxas": {b: [v for e, v in d["ptxas"].items() if tag in e]
+                             for b, d in res["build"].items()
+                             if b.startswith(mod.LIBRARY.name)}}
+        print(f"{kname}: {r['ptxas']}", flush=True)
+        res[kname] = r
+        z = np.load(os.path.join(ROOT, "tests", "fixtures", fixture))
+        gposes = torch.as_tensor(z["poses"], device=dev)
+        r["points"] = {}
+        if mod is rollout3d:
+            engine3d.SOLVER3 = solver
+            coefs, points, scal = (torch.as_tensor(z[k], device=dev)
+                                   for k in ("coefs", "points", "scalars"))
+            cases = {f"P={p}": ((coefs, points[:, :p].contiguous(), scal),
+                                (800, 0, 0)) for p in (256, 200, 17)}
+        else:
+            engine2d.SOLVER = solver
+            coefs, contour, sup, scal = (
+                torch.as_tensor(z[k], device=dev)
+                for k in ("coefs", "contour", "support", "scalars"))
+            rep = contour.repeat(1, 3, 1)
+            cases = {f"P={p},S={s}": ((coefs, rep[:, :p].contiguous(),
+                                       sup[:, :s].contiguous(), scal),
+                                      (200, 0, 0))
+                     for p in (100, 272, 17) for s in (64, 7)}
+        for case, (arrs, sched) in cases.items():
+            o_this, _ = run(mod, "this", *arrs, gposes, *sched, solver=solver,
+                            **kw)
+            o_other, _ = run(mod, "other", *arrs, gposes, *sched,
+                             solver=solver, **kw)
+            diff = same(o_this, o_other)
+            r["points"][case] = diff
+            print(f"  {case}: planes differing {diff}", flush=True)
+            if diff:
+                raise SystemExit(f"{kname} {case}: the kernels differ on "
+                                 f"{diff}")
+
+        if mod is rollout3d:
+            k2 = k2 or chip_smoke.k2_inputs(dev)
+            arrs8 = rollout3d.scene_arrays_3d(k2["scenes8"], device=dev)
+            arrs16 = rollout3d.scene_arrays_3d(k2["scenes16"], device=dev)
+            poses, eposes = k2["poses"], k2["eposes"]
+            rg = SIM.eval_regrasp_3d
+            dg = (arrs8, poses, (SIM.steps_3d, 0, 0))
+            ev = (arrs16, eposes, (SIM.eval_steps_3d, rg, rg))
+        else:
+            k1 = k1 or chip_smoke.k1_inputs(dev)
+            arrs8 = rollout2d.scene_arrays(k1["scenes8"], device=dev)
+            arrs16 = rollout2d.scene_arrays(k1["scenes16"], device=dev)
+            poses, eposes = k1["poses"], k1["eposes"]
+            rg = SIM.eval_regrasp_2d
+            dg = (arrs8, poses, (SIM.steps_2d, 0, 0))
+            ev = (arrs16, eposes, (SIM.eval_steps_2d, rg, rg))
+        skw = dict(kw, solver=solver)
+        r["datagen"], out = ab(f"{kname} datagen", mod,
+                               (*dg[0], dg[1], *dg[2]), skw)
+        if kname == "k2_newton_tol":
+            # iterations a full step, and the fixed count of one iteration
+            cf = out[9][:, ::128].double()
+            ci = out[11][:, ::128].double()
+            per = float((ci.sum() / cf.sum()).item())
+            r["datagen_fixed"], _ = ab(f"{kname} datagen, fixed count 1",
+                                       mod, (*dg[0], dg[1], *dg[2]),
+                                       {"solver": solver})
+            r["iters_per_full_step"] = per
+            for which in ("this", "other"):
+                t_tol = min(r["datagen"]["ms"][which])
+                t_fix = min(r["datagen_fixed"]["ms"][which])
+                b = (t_tol - t_fix) / (per - 1.0)
+                r.setdefault("ms_per_iteration", {})[which] = b
+                r.setdefault("ms_outside_iterations", {})[which] = t_fix - b
+            print(f"  {kname}: {per:.3f} iterations a full step; T(n) = a + "
+                  f"b n: b {r['ms_per_iteration']}, a "
+                  f"{r['ms_outside_iterations']}", flush=True)
+            continue
+        r["verify"], _ = ab(f"{kname} verify", mod, (*ev[0], ev[1], *ev[2]),
+                            skw)
+        if mod is rollout3d:
+            # the verification shape at 15 grippers: one wave of clusters
+            a15 = [a[:15].contiguous() for a in ev[0]]
+            r["verify_15"], _ = ab(f"{kname} verify at 15 grippers", mod,
+                                   (*a15, ev[1], *ev[2]), skw)
+        if solver == "jacobi":
+            eng = engine3d if mod is rollout3d else engine2d
+            old = eng.SOLVER_ITERS
+            try:
+                eng.SOLVER_ITERS = 0
+                r["no_sweeps"], _ = ab(f"{kname} datagen, solver_iters 0",
+                                       mod, (*dg[0], dg[1], *dg[2]), skw)
+            finally:
+                eng.SOLVER_ITERS = old
+
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+    print(json.dumps({k: {s: v[s]["ms"] for s in v if isinstance(v[s], dict)
+                          and "ms" in v[s]} for k, v in res.items()
+                      if k in KERNELS}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,19 +1,26 @@
-"""The vector point sum of the CUDA kernels (``group_sum_vec`` in
-dgdm_tpu_torch/csrc/rollout_common.cuh, used by K2's Jacobi passes) against
-the order of the plain rollout versions (dgdm_tpu_torch/sim/point_sum.py).
+"""The vector point sums of the CUDA kernels (``group_sum_vec`` and
+``group_sum_park`` in dgdm_tpu_torch/csrc/rollout_common.cuh, used by K2's
+Newton and Jacobi passes and K1's Jacobi passes) against the order of the
+plain rollout versions (dgdm_tpu_torch/sim/point_sum.py).
 
-A numpy emulation of the helper over the 32 lanes of a rollout: lane r adds
-the points r, r + 32, ... in increasing p onto 0.0 in float64; then, at each
-xor stride 16, 8, 4, 2, 1, a lane holding C > 1 values keeps the first
+A numpy emulation of the helpers over the G lanes of a rollout (G = 32 for
+K2, 16 for K1): lane r adds the points r, r + G, ... in increasing p onto
+0.0 in float64; then, at each xor stride G/2, ..., 2, 1, a lane holding
+C > 1 values keeps the first
 ceil(C / 2) of them (its stride bit clear) or the rest, padded with one
 value where C is odd (bit set), and adds its partner's partial of what it
 keeps; a lane holding one value adds its partner's, as ``group_sum``'s
 butterfly does. Each total rounds once to float32 on the lane where it
-ended. Bitwise equality with ``point_sum64(..., group=32)`` is asserted
-(tolerance 0) for 6, 8 and 10 values (the plane sweep's, the finger
-sweep's and pass A's sums) on float32 terms spanning 1e-8 to 1e8 with
-cancelling signs, where float64 addition is inexact and the order decides
-the bits. No JAX counterpart: the Pallas kernels sum in float32."""
+ended: ``group_sum_vec`` broadcasts it, ``group_sum_park`` has the owner
+lane (``detail::vec_owner``, found by its inverse ``detail::vec_slot``)
+store it. Bitwise equality with ``point_sum64(..., group=G)`` is asserted
+(tolerance 0) on float32 terms spanning 1e-8 to 1e8 with cancelling signs,
+where float64 addition is inexact and the order decides the bits: at G = 32
+for 6, 8 and 10 values (K2 Jacobi's plane sweep, finger sweep and pass A)
+and 25, 26 and 27 (K2 Newton's passes C, A and B, and the cheap solve's
+iteration); at G = 16 for 3, 5 and 6 (K1 Jacobi's planar sweep, contour
+sweep and passes A and C). No JAX counterpart: the Pallas kernels sum in
+float32."""
 
 import numpy as np
 import pytest
@@ -34,26 +41,54 @@ def _terms(p, n, seed):
     return x.astype(np.float32)
 
 
-def _lane_partials(x):
-    """The kernel's per-lane float64 partials, (G, N)."""
-    acc = np.zeros((G, x.shape[1]), np.float64)
-    for r in range(G):
-        for q in range(r, x.shape[0], G):
+def _lane_partials(x, g=G):
+    """The kernel's per-lane float64 partials, (g, N)."""
+    acc = np.zeros((g, x.shape[1]), np.float64)
+    for r in range(g):
+        for q in range(r, x.shape[0], g):
             acc[r] = acc[r] + x[q].astype(np.float64)
     return acc
 
 
-def _group_sum_vec(partials):
+def _vec_owner(m, c, q):
+    """``detail::vec_owner<M, C>(q)``: the lane on which value q ends."""
+    if m == 0:
+        return 0
+    if c == 1:
+        return _vec_owner(m // 2, 1, q)
+    h = (c + 1) // 2
+    return (_vec_owner(m // 2, h, q) if q < h
+            else m + _vec_owner(m // 2, h, q - h))
+
+
+def _vec_slot(m, c, r, lane):
+    """``detail::vec_slot<M, C, R>(lane)``: the value whose owner is
+    ``lane``, or -1."""
+    if r <= 0:
+        return -1
+    if m == 0:
+        return 0
+    if c == 1:
+        return -1 if lane & m else _vec_slot(m // 2, 1, r, lane)
+    h = (c + 1) // 2
+    if lane & m:
+        s = _vec_slot(m // 2, h, r - h, lane)
+        return -1 if s < 0 else h + s
+    return _vec_slot(m // 2, h, min(r, h), lane)
+
+
+def _group_sum_vec(partials, g=G, final=None):
     """-> (per-value float64 total as held by its owner lane, float32 value
-    every lane receives, float64 exchanges per lane)."""
+    every lane receives, float64 exchanges per lane); with ``final`` a
+    list, it receives each lane's float64 value after the last stride."""
     n = partials.shape[1]
-    held = [[np.float64(v) for v in partials[r]] for r in range(G)]
-    c, m, exchanges = n, G // 2, 0
+    held = [[np.float64(v) for v in partials[r]] for r in range(g)]
+    c, m, exchanges = n, g // 2, 0
     owners = [0] * n           # lane bits so far, by value
     local = list(range(n))     # index of each value in its owner's list
     while m >= 1:
         if c == 1:
-            held = [[held[r][0] + held[r ^ m][0]] for r in range(G)]
+            held = [[held[r][0] + held[r ^ m][0]] for r in range(g)]
             exchanges += 1
         else:
             h = (c + 1) // 2
@@ -62,7 +97,7 @@ def _group_sum_vec(partials):
                 return held[r][h + j] if h + j < c else np.float64(0.0)
 
             new = []
-            for r in range(G):
+            for r in range(g):
                 up, partner = bool(r & m), r ^ m
                 row = []
                 for j in range(h):
@@ -79,6 +114,9 @@ def _group_sum_vec(partials):
             c = h
         m //= 2
     assert all(i == 0 for i in local)
+    assert owners == [_vec_owner(g // 2, n, q) for q in range(n)]
+    if final is not None:
+        final.extend(h[0] for h in held)
     tot64 = np.array([held[owners[q]][0] for q in range(n)])
     # every lane receives the owner's rounding (a float32 broadcast)
     recv = np.array([np.float32(held[owners[q]][0]) for q in range(n)])
@@ -98,5 +136,43 @@ def test_group_sum_vec_matches_point_sum64(n, exchanges, p):
     assert used == exchanges
     # the terms make the order matter: a sequential float64 sum of the same
     # terms differs from the tree in some value of the case
+    seq = point_sum64(torch.from_numpy(x), 0, 1).numpy()
+    assert not np.array_equal(seq, want)
+
+
+@pytest.mark.parametrize("g,n,p,exchanges", [
+    (32, 6, 256, 8), (32, 6, 200, 8), (32, 6, 17, 8),
+    (32, 25, 256, 27), (32, 25, 200, 27), (32, 25, 17, 27),
+    (32, 26, 256, 27), (32, 26, 200, 27), (32, 26, 17, 27),
+    (32, 27, 256, 28), (32, 27, 200, 28), (32, 27, 17, 28),
+    (16, 3, 100, 5), (16, 3, 272, 5), (16, 3, 17, 5),
+    (16, 5, 100, 7), (16, 5, 272, 7), (16, 5, 17, 7),
+    (16, 6, 100, 7), (16, 6, 272, 7), (16, 6, 17, 7),
+])
+def test_group_sum_vec_and_park_match_point_sum64(g, n, p, exchanges):
+    """Both helpers at the kernels' vector widths and point counts (K2:
+    256, 200 and 17 points; K1 Jacobi: 100, 272 and 17 contour points):
+    every total bitwise ``point_sum64(..., group=g)``'s, on every lane
+    (``group_sum_vec``) and parked by exactly one lane, the one that
+    ``vec_owner`` names (``group_sum_park``), in the float64 exchanges a
+    lane makes (27 for K2 Newton's 26 sums, where 26 butterflies take 130;
+    7 for K1's 5 contour-sweep sums at G = 16, where 5 take 20)."""
+    x = _terms(p, n, seed=1000 * g + 10 * n + p)
+    final = []
+    tot64, recv, used = _group_sum_vec(_lane_partials(x, g), g, final)
+    want = point_sum64(torch.from_numpy(x), 0, g).numpy()
+    np.testing.assert_array_equal(tot64, want)
+    np.testing.assert_array_equal(recv, want.astype(np.float32))
+    assert used == exchanges
+    # group_sum_park: lane r stores its rounded value to dst[vec_slot(r)]
+    dst = np.full(n, np.nan, np.float32)
+    slots = [_vec_slot(g // 2, n, n, r) for r in range(g)]
+    for r, q in enumerate(slots):
+        if q >= 0:
+            assert np.isnan(dst[q]), f"value {q} stored twice"
+            assert r == _vec_owner(g // 2, n, q)
+            dst[q] = np.float32(final[r])
+    assert sorted(q for q in slots if q >= 0) == list(range(n))
+    np.testing.assert_array_equal(dst, want.astype(np.float32))
     seq = point_sum64(torch.from_numpy(x), 0, 1).numpy()
     assert not np.array_equal(seq, want)

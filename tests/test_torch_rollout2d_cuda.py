@@ -136,3 +136,55 @@ def test_cuda_jacobi_refuses_more_points_than_fit():
                            "newton")
     torch.cuda.synchronize()
     assert rollout2d.KERNEL_LAUNCHES["rollout2d"] == newton + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 7])
+@pytest.mark.parametrize("p", [100, 272, 17])
+def test_cuda_jacobi_matches_plain_bitwise_at_point_counts(p, s):
+    """The Jacobi instantiation at the package's 100 contour points (7 a
+    lane, all with their impulses in registers), at 272 (17 a lane: 8 in
+    registers, 9 in the shared-memory slab; the most the launcher accepts
+    at 64 supports) and at fewer points than lanes (17), with 64 supports
+    (4 a lane, all in registers) and 7 (fewer than lanes): bitwise equal to
+    the plain version in the kernel's order on all 8 planes over the
+    Jacobi golden fixture's datagen schedule (200 steps), its pairs and
+    poses with the contour repeated to P points and the first S supports."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the rollout kernel runs on the card")
+    z, arrs, poses = golden(GOLDEN_JACOBI)
+    steps, rg, snap = (int(v) for v in z["datagen_schedule"])
+    arrs, poses = [a.cuda() for a in arrs], poses.cuda()
+    contour = arrs[1].repeat(1, 3, 1)[:, :p].contiguous()
+    support = arrs[2][:, :s].contiguous()
+    arrs = [arrs[0], contour, support, arrs[3]]
+    out = rollout2d.rollout_cuda(*arrs, poses, steps, rg, snap, "jacobi")
+    torch.cuda.synchronize()
+    ref = profile_batch_ref(*arrs, poses, steps=steps, regrasp_every=rg,
+                            snapshot_step=snap, solver="jacobi",
+                            sum_group=rollout2d.THREADS_PER_ROLLOUT)
+    assert float(out[6].amax()) > 0.0
+    for k, a, b in zip(NAMES, out, ref):
+        assert torch.equal(a, b), f"{k} differs from the plain version"
+
+
+@pytest.mark.cuda
+def test_cuda_jacobi_launcher_accepts_272_points_at_64_supports():
+    """The largest Jacobi count the launcher takes at 64 supports: 272
+    contour points (17 a lane) fit a block's shared memory, 288 do not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the rollout kernel runs on the card")
+    _, arrs, poses = golden(GOLDEN_JACOBI)
+    arrs, poses = [a.cuda() for a in arrs], poses.cuda()
+    assert arrs[2].shape[1] == 64
+    before = rollout2d.KERNEL_LAUNCHES["rollout2d_jacobi"]
+    big = arrs[1].repeat(1, 3, 1)
+    rollout2d.rollout_cuda(arrs[0], big[:, :272].contiguous(), *arrs[2:],
+                           poses, 10, 0, 0, "jacobi")
+    torch.cuda.synchronize()
+    assert rollout2d.KERNEL_LAUNCHES["rollout2d_jacobi"] == before + 1
+    assert rollout2d.LAST_PLAN["shared_bytes"] <= 232448
+    with pytest.raises(RuntimeError, match="point count"):
+        rollout2d.rollout_cuda(arrs[0], big[:, :288].contiguous(),
+                               *arrs[2:], poses, 10, 0, 0, "jacobi")
+    assert rollout2d.KERNEL_LAUNCHES["rollout2d_jacobi"] == before + 1

@@ -208,3 +208,39 @@ def test_cuda_jacobi_launcher_refuses_more_points_than_fit(p):
         rollout3d.rollout_cuda(arrs[0], big, arrs[2], poses, 100, 0, 0,
                                solver="jacobi")
     assert rollout3d.KERNEL_LAUNCHES["rollout3d_jacobi"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", [0.0, 1e-4])
+@pytest.mark.parametrize("p", [256, 200, 17])
+def test_cuda_newton_matches_plain_bitwise_at_point_counts(p, tol):
+    """The Newton instantiations at the launcher's largest point count (256,
+    8 points a lane), at one that is no multiple of 32 (200) and at fewer
+    points than lanes (17), with the fixed iteration count (``newton_tol``
+    0: the Newton golden fixture's pairs and poses) and the adaptive loop
+    (``newton_iters`` 6, ``newton_tol`` 1e-4: the newton_tol fixture's):
+    bitwise equal to the plain version in the kernel's order on all 12
+    planes over 800 steps. A count that is no multiple of 32 leaves some of
+    each pass's vector totals on lanes that hold fewer points, and the
+    friction factor that pass A writes for passes B and C is read back only
+    for the lane's own points."""
+    _need_cuda()
+    if tol:
+        z, arrs, poses = _fixture("rollout3d_newton_tol_golden.npz")
+        kw = dict(newton_iters=int(z["newton_iters"]), newton_tol=tol)
+        inst = "rollout3d_newton_tol"
+    else:
+        z, arrs, poses = _fixture("rollout3d_golden.npz")
+        kw = dict(newton_iters=None, newton_tol=0.0)
+        inst = "rollout3d"
+    arrs = [arrs[0], arrs[1][:, :p].contiguous(), arrs[2]]
+    before = rollout3d.KERNEL_LAUNCHES[inst]
+    out = rollout3d.rollout_cuda(*arrs, poses, 800, 0, 0, solver="newton",
+                                 **kw)
+    torch.cuda.synchronize()
+    assert rollout3d.KERNEL_LAUNCHES[inst] == before + 1
+    ref = profile_batch_ref(*arrs, poses, steps=800, solver="newton",
+                            sum_group=rollout3d.THREADS_PER_ROLLOUT, **kw)
+    assert float(out[9].amax()) > 0.0
+    for k, a, b in zip(NAMES3, out, ref):
+        assert torch.equal(a, b), f"{k} differs from the plain version"
