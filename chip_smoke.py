@@ -25,7 +25,12 @@ Phases, each printing its own lines:
    rotate_clockwise, verification at 8,000 steps. The kernel launch counts
    are reset just before and read just after; every kernel of the path must
    have launched. One verification call of the loop (its shift_up samples
-   of the first object) then runs once more, timed whole and K1 alone;
+   of the first object) then runs once more, timed whole and K1 alone.
+   Then the loop's objectives as the guided sampler weighs them
+   (``GuidedSampler._objective_weights`` summed with the classifier's
+   deltas of the loop's final samples over the 9,000-pose grid) must equal
+   ``design/objectives.deltas_to_objective`` on the card, and that the same
+   call on the CPU, each within 1e-6 relative, one line per objective;
 5. kernel K2 (rollout3d), datagen schedule at full size: 8 grippers
    ``sample_gripper_3d(0..7)`` x the fixture object ``mug_small`` (one
    ``object_properties_3d`` shared by the block, 256 contact points, as
@@ -86,48 +91,52 @@ Phases, each printing its own lines:
     bars of tests/fixtures/rollout2d_jacobi_golden.npz, its bound from
     ``k1_jacobi_flops`` and its own step counters; then, launch counts reset
     just before and read just after, (b) the verification shape through
-    ``sim_eval_batch_2d`` (16 x 360 x 8,000, regrasp and snapshot at 200) and
-    (c) gradient design on the card (``design_gradient_2d`` with
-    scripts/demo_grad_design.py's gripper, contour, objective and
-    num_rot 36, num_pairs 4, holdout_draws 8; depth cut to 10 iterations,
-    the demo runs 50): finite history and held-out values, iteration 0's
-    candidate objectives within 2e-3 of the same call on the CPU, 2
-    ``method="backprop"`` iterations with finite non-zero gradients, and the
-    start and designed grippers on 96 orientations through the pure engine
-    and K1 under both solvers. Outside the counted run: the 96-orientation
-    K1 outputs of both solvers bitwise against their plain versions (the
-    main path's own call, 2 x 128 x 200), (b)'s kernel timed alone, its
-    200-step snapshot bitwise against the kernel's own 200-step squeeze, the
-    verify shape with its depth cut to 1,000 steps (regrasp and snapshot at
-    200) bitwise against the plain version, and the pure engine's cost a
-    step (ms, kernels, the card's busy share from ``torch.profiler``);
+    ``sim_eval_batch_2d`` (16 x 360 x 8,000, regrasp and snapshot at 200)
+    and (c) gradient design on the card (``design_gradient_2d`` with
+    scripts/demo_grad_design.py's gripper, contour, objective and num_rot
+    36, num_pairs 4, holdout_draws 8; depth cut to ``GRAD_DESIGN_ITERS`` = 4
+    iterations, the demo runs 50): finite history and held-out values,
+    iteration 0's candidate objectives within 2e-3 of the same call on the
+    CPU, ``GRAD_BACKPROP_ITERS`` = 1 ``method="backprop"`` iteration with a
+    finite non-zero gradient, and the start and designed grippers on 96
+    orientations through the pure engine and K1 under both solvers. Outside
+    the counted run: the 96-orientation K1 outputs of both solvers bitwise
+    against their plain versions (the main path's own call, 2 x 128 x 200),
+    (b)'s kernel timed alone, its 200-step snapshot bitwise against the
+    kernel's own 200-step squeeze, the verify shape with its depth cut to
+    ``K1_JACOBI_VERIFY_CUT`` = 400 steps (regrasp and snapshot at 200)
+    bitwise against the plain version, and the pure engine's cost a step
+    (ms, kernels, the card's busy share from ``torch.profiler``);
 11. the JAX package's other 3D configuration (``engine3d.SOLVER3 =
     "jacobi"``, restored after), launch counts reset before each main-path
     call and read after: (a) K2's Jacobi instantiation through
     ``profile_pairs_3d`` at the datagen shape (8 x 9,088 x 800, the Jacobi
     calibration), held within the bars of
-    tests/fixtures/rollout3d_jacobi_golden.npz and bitwise against its
-    plain version over all 800 steps; the kernel timed in 3 calls (their
-    spread printed) beside the earlier design's time, its bound from
-    ``k2_jacobi_flops`` and its share of it; (b) the verification shape
-    through ``sim_eval_batch_3d`` (16 x 45 padded to 128 x 32,000, regrasp
-    and snapshot at 800): one Jacobi launch, the kernel beside the earlier
-    design's time and its share of the bound, again at 15 grippers (the
-    16th cluster's second wave) with the clusters resident, the snapshot
-    bitwise against the kernel's own 800-step squeeze, the depth cut to
-    1,000 steps bitwise against the plain version; (c) K2's adaptive-Newton
-    instantiation (``newton_iters`` 6, ``newton_tol`` 1e-4) through
+    tests/fixtures/rollout3d_jacobi_golden.npz and, with the depth cut to
+    ``K2_JACOBI_DATAGEN_CUT`` = 400 of its 800 steps (past first contact; the
+    full-solve counters printed), bitwise against its plain version; the
+    kernel timed in 3 calls (their spread printed) beside the earlier
+    design's time, its bound from ``k2_jacobi_flops`` and its share of it;
+    (b) the verification shape through ``sim_eval_batch_3d`` (16 x 45 padded
+    to 128 x 32,000, regrasp and snapshot at 800): one Jacobi launch, the
+    kernel beside the earlier design's time and its share of the bound,
+    again at 15 grippers (the 16th cluster's second wave) with the clusters
+    resident, the snapshot bitwise against the kernel's own 800-step
+    squeeze, the depth cut to ``K2_JACOBI_VERIFY_CUT`` = 850 steps bitwise
+    against the plain version; (c) K2's adaptive-Newton instantiation
+    (``newton_iters`` 6, ``newton_tol`` 1e-4) through
     ``rollout3d.profile_batch`` at the datagen shape, bitwise against its
-    plain version over all 800 steps and within its golden
-    fixture's bars, the iterations a full step per block beside the fixed
-    count's; (d) the pure 3D engine on
-    the card: ``profile_pairs_3d(use_pallas=False)`` on one 450-pose chunk
-    of the grid x 8 pairs x 800 steps under Newton and Jacobi, held against
-    K2 on the same pairs and poses (``engine_vs_kernel``),
-    ``eval_rollout_batch_3d`` at 16 x 45 with its depth cut to 1,600 steps
-    against K2's snapshot, ``rollout_trace3d``, each solver's cost a step
-    (ms, kernels, busy share from ``torch.profiler``) and one step card vs
-    CPU within 1e-5;
+    plain version with the depth cut to ``K2_NEWTON_TOL_CUT`` = 600 of 800
+    steps (its full-solve steps begin at ~450-600) and within its
+    golden fixture's bars, the iterations a full step per block beside the
+    fixed count's; (d) the pure 3D engine on the card:
+    ``profile_pairs_3d(use_pallas=False)`` on one 450-pose chunk of the grid
+    x 8 pairs x 800 steps under Newton and Jacobi, held against K2 on the
+    same pairs and poses (``engine_vs_kernel``), ``eval_rollout_batch_3d``
+    at 16 x 45 with its depth cut to ``PURE3D_EVAL_CUT`` = 1,000 steps
+    against K2's snapshot, ``rollout_trace3d`` (400 steps), each solver's
+    cost a step (ms, kernels, busy share from ``torch.profiler``) and one
+    step card vs CPU within 1e-5;
 12. the multi-GPU layer (``dgdm_tpu_torch/parallel/``) and the flagship
     entry point: (a) ``graft_entry.entry()``, one guided-denoise step at the
     flagship shape (B 16, the 9,000-pose classifier gradient, UNet (128,
@@ -152,26 +161,28 @@ Phases, each printing its own lines:
     NCCL group: one all-reduce and one step of a DDP-wrapped
     ``DynamicsTrainer``. A rank that fails to start, launch or agree fails
     the phase;
-13. the render path, the device part of ``cli.sample --render_video``
-    (whose writers, matplotlib and imageio, this host lacks): (a) the
-    denoise trajectory at phase 4's shape (``train/generator.
-    sample_trajectory``, B 16, UNet (128, 256), 5 DDIM steps, TF32 off),
-    its last row bitwise ``generator.sample``'s and within 1e-5 of the CPU;
-    (b) phase 4's 6 design pairs (its best-success grippers, 3 objectives x
-    2 objects) through ``cli.sample.render_inputs`` as one batched 2D trace
-    on the card, 2,000 steps (cut from the CLI's 8,000), every 20, regrasp
-    every 200: seconds, ms and CUDA kernels a step, the card's busy share
-    (``torch.profiler``), the projected seconds at 8,000 steps; the object
-    turned; each pair's first 400 steps against the pair traced alone on
-    the card, and against a batched CPU trace, within 1e-4 rad and 1e-5 m
-    (``scripts/probe_trace_chaos.py``); (c) their frames (100 x 128 x 128
-    x 3, uint8, the four colours, the object and both fingers in frame 0)
-    and silhouettes on the host, timed; (d) phase 7's 3 design pairs as one
-    batched 3D trace, 800 steps, every 20: unit quaternions, each pair
-    against itself alone within the same bars, finite scene points;
-    (e) the files the writers make, and the CPU tests that write and check
-    them. No kernel launches in this phase;
-14. times and the summary.
+13. the render path, the device part of ``cli.sample --render_video`` (whose
+    writers, matplotlib and imageio, this host lacks): (a) the denoise
+    trajectory at phase 4's shape (``train/generator.sample_trajectory``,
+    B 16, UNet (128, 256), 5 DDIM steps, TF32 off), its last row bitwise
+    ``generator.sample``'s and within 1e-5 of the CPU; (b) phase 4's 6
+    design pairs (its best-success grippers, 3 objectives x 2 objects)
+    through ``cli.sample.render_inputs`` as one batched 2D trace on the
+    card, ``RENDER_2D_STEPS`` = 1,000 steps (cut from the CLI's 8,000),
+    every 20, regrasp every 200: seconds, ms and CUDA kernels a step, the
+    card's busy share (``torch.profiler``), the projected seconds at 8,000
+    steps; the object turned; the first 400 steps of the first and last pair
+    against each traced alone on the card, and against a CPU trace of the
+    two, within 1e-4 rad and 1e-5 m (``scripts/probe_trace_chaos.py``); (c)
+    their frames (50 x 128 x 128 x 3, uint8, the four colours, the object
+    and both fingers in frame 0) and silhouettes on the host, timed; (d)
+    phase 7's 3 design pairs as one batched 3D trace, 800 steps, every 20:
+    unit quaternions, the first pair against itself alone within the same
+    bars, finite scene points; (e) the files the writers make, and the CPU
+    tests that write and check them. No kernel launches in this phase;
+14. times and the summary, and ``chip_smoke total N s of 1,200 s`` (the
+    time limit of the whole script, builds included; the depths cut for it
+    are the constants under ``TIME_LIMIT_S``).
 
 Each kernel has one thread layout (K1 16 threads a rollout, K2 32; a
 128-pose group is a cluster of 8 blocks) and holds each thread's per-point
@@ -219,6 +230,30 @@ PEAK_BYTES_PER_S = 3.35e12
 # TPU kernel's, by schedule (the flag is the final one; see
 # tests/test_torch_rollout3d_jacobi.py)
 JACOBI_VALID_MIN = {"datagen": 0.95, "eval": 0.90}
+# the script must end within 1,200 s on the card's host; the depths of these
+# checks off the main path are cut to keep it near 75% of that (phases 1-7
+# and 12 keep theirs). Each cut keeps first contact and full-solve steps, and
+# each line it shortens prints the depth before and after.
+TIME_LIMIT_S = 1200
+GRAD_DESIGN_ITERS = 4          # phase 10 (c): of the demo's 50 (was 10)
+GRAD_BACKPROP_ITERS = 1        # phase 10 (c): method="backprop" (was 2)
+K1_JACOBI_VERIFY_CUT = 400     # phase 10: plain K1 Jacobi verify (was 1,000)
+K2_JACOBI_DATAGEN_CUT = 400    # phase 11 (a): plain K2 Jacobi at the datagen
+                               # shape, of 800 steps (was all 800): a Jacobi
+                               # step is a full step from the first, and the
+                               # grip begins after ~300
+K2_NEWTON_TOL_CUT = 600        # phase 11 (c): plain K2 newton_tol there (was
+                               # all 800): full-solve steps begin at ~450-600
+                               # of the datagen grid's blocks
+K2_JACOBI_VERIFY_CUT = 850     # phase 11 (b): plain K2 Jacobi verify, regrasp
+                               # and snapshot at 800 (was 1,000)
+PURE3D_EVAL_CUT = 1000         # phase 11 (d): eval_rollout_batch_3d (was
+                               # 1,600)
+PURE3D_TRACE_STEPS = 400       # phase 11 (d): rollout_trace3d (was 800)
+RENDER_2D_STEPS = 1000         # phase 13 (b): the batched 2D trace, of the
+                               # CLI's 8,000 (was 2,000); its first and last
+                               # pair re-traced alone and on the CPU (was
+                               # all 6); (d) the first 3D pair alone (was 3)
 
 
 class PhaseClock:
@@ -429,6 +464,81 @@ def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def objective_check(unet_path: str, cls_path: str, save_dir: str, oid,
+                    contour: np.ndarray, dev) -> dict:
+    """Phase 4: the design loop's objectives as the guided sampler weighs
+    them (``GuidedSampler._objective_weights`` summed with the deltas;
+    'rotate' squares component 0) against
+    ``design/objectives.deltas_to_objective`` on the card, and that against
+    the same call on the CPU, each within 1e-6 relative to the largest
+    entry. The deltas: the loop's full-width classifier on the loop's final
+    samples of each objective (object ``oid``) over the full 360 x 5 x 5
+    pose grid at t = 0; the convergence centers found as the loop finds
+    them (from the unguided samples of its noise)."""
+    import torch
+
+    from dgdm_tpu_torch.core.config import NORM
+    from dgdm_tpu_torch.design.guidance import GuidedSampler
+    from dgdm_tpu_torch.design.objectives import deltas_to_objective
+    from dgdm_tpu_torch.models import convert
+    from dgdm_tpu_torch.train import generator
+
+    grid, num_pos, b = 360, 5, 16
+    sampler = GuidedSampler(
+        convert.load_model(unet_path, "unet", input_dim=1),
+        convert.load_model(cls_path, "profile2d", params_ch=14,
+                           object_ch=200),
+        grid_size=grid, num_pos=num_pos, device=dev)
+    obj_flat = torch.as_tensor(contour.reshape(-1) / NORM.object_extent_2d,
+                               dtype=torch.float32, device=dev)
+    noise = torch.as_tensor(np.random.RandomState(0).randn(b, 14, 1)
+                            .astype(np.float32), device=dev)
+    unguided = generator.sample(sampler.unet, noise, 15, 5)
+    centers = sampler.find_convergence_centers(
+        unguided, obj_flat, NORM.threshold_std(False)[0])
+    poses = sampler._poses((-1.0, 1.0))
+    n = poses.shape[0]
+    check(n == 9000, f"the full pose grid: {n} poses")
+    feat = sampler._encode_object(obj_flat)
+    out = {}
+    for objective in ("convergence", "shift_up", "rotate_clockwise"):
+        x = torch.as_tensor(np.load(os.path.join(
+            save_dir, f"samples_{objective}_{oid}.npy")), device=dev)[..., 0]
+        with torch.no_grad():
+            deltas = sampler.classifier.trunk(
+                x[None].expand(n, b, x.shape[-1]).reshape(n * b, -1),
+                poses[:, 0:1].repeat_interleave(b, dim=0),
+                poses[:, 1:3].repeat_interleave(b, dim=0),
+                torch.zeros(n * b, device=dev), feat[None]).reshape(n, b, 3)
+        check(bool(torch.isfinite(deltas).all()), f"{objective}: finite "
+              f"deltas")
+        w, rotate_sq = sampler._objective_weights(objective, centers, b)
+        via_w = (deltas[..., 0] ** 2 if rotate_sq
+                 else (w * deltas).sum(-1)).T                     # (B, N)
+        kw = dict(grid_size=grid, num_pos=num_pos)
+        card = deltas_to_objective(deltas.permute(1, 0, 2), objective,
+                                   centers=centers, **kw)
+        cpu = deltas_to_objective(deltas.permute(1, 0, 2).cpu(), objective,
+                                  centers=centers.cpu(), **kw)
+        check(card.shape == via_w.shape == (b, n)
+              and card.device == deltas.device,
+              f"{objective}: shapes {tuple(card.shape)}, "
+              f"{tuple(via_w.shape)}")
+        scale = max(float(card.abs().max()), 1e-30)
+        err_w = float((via_w - card).abs().max()) / scale
+        err_cpu = float((card.cpu() - cpu).abs().max()) / scale
+        print(f"  objective {objective} over {b} samples x {n} poses: the "
+              f"sampler's weights vs deltas_to_objective on the card "
+              f"{err_w:.3g}, card vs CPU {err_cpu:.3g} (relative, bar 1e-6)",
+              flush=True)
+        check(err_w <= 1e-6 and err_cpu <= 1e-6,
+              f"{objective}: the sampler's objective differs from "
+              f"deltas_to_objective ({err_w:.3g}, card vs CPU {err_cpu:.3g})")
+        out[objective] = {"weights_vs_function": err_w,
+                          "card_vs_cpu": err_cpu}
+    return out
 
 
 def phases_3d(dev, clock: PhaseClock) -> dict:
@@ -896,10 +1006,11 @@ def phase_jacobi_design(dev) -> dict:
         yl0, yr0 = sample_gripper_2d(0)
         gkw = dict(objective="rotate_clockwise", num_rot=36, steps=200,
                    num_pairs=4, holdout_draws=8)
-        iters = 10
+        iters = GRAD_DESIGN_ITERS
         print(f"  gradient design (scripts/demo_grad_design.py's protocol: "
               f"sample_gripper_2d(0), its contour, {gkw}); depth cut: "
-              f"{iters} iterations, the demo runs 50", flush=True)
+              f"{iters} iterations of the demo's 50 (10 before the time "
+              f"limit's cut)", flush=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         gd = graddesign.design_gradient_2d(yl0, yr0, gcontour, iters=iters,
@@ -939,17 +1050,20 @@ def phase_jacobi_design(dev) -> dict:
               f"{cpu_s:.1f}s)", flush=True)
         # the backprop estimator
         t0 = time.perf_counter()
-        bp = graddesign.design_gradient_2d(yl0, yr0, gcontour, iters=2,
-                                           method="backprop", device=dev,
-                                           **gkw)
+        bp_iters = GRAD_BACKPROP_ITERS
+        bp = graddesign.design_gradient_2d(yl0, yr0, gcontour,
+                                           iters=bp_iters, method="backprop",
+                                           device=dev, **gkw)
         torch.cuda.synchronize()
         bp_s = time.perf_counter() - t0
-        check(np.isfinite(bp["grad_norms"]).all()
+        check(len(bp["grad_norms"]) == bp_iters
+              and np.isfinite(bp["grad_norms"]).all()
               and min(bp["grad_norms"]) > 0
               and np.isfinite(bp["history"]).all(),
               f"backprop: finite, non-zero gradients {bp['grad_norms']}")
-        print(f"  backprop: 2 iterations {bp_s:.2f}s, gradient norms "
-              f"{np.round(bp['grad_norms'], 4).tolist()}", flush=True)
+        print(f"  backprop: {bp_iters} iteration(s) (2 before the time "
+              f"limit's cut) and the held-out pass {bp_s:.2f}s, gradient "
+              f"norms {np.round(bp['grad_norms'], 4).tolist()}", flush=True)
         # start and designed gripper on 96 orientations, as the demo
         # evaluates them: the pure engine and K1, under both solvers
         th = np.linspace(0, 2 * np.pi, 96, endpoint=False)
@@ -1017,8 +1131,10 @@ def phase_jacobi_design(dev) -> dict:
             metrics[i]["delta_theta"],
             ev[0][i, :360].cpu().numpy() * 180.0 / np.pi) for i in range(16)),
             "sim_eval_batch_2d's profiles are this kernel's snapshot")
-        # the verify shape with its depth cut, against the plain version
-        cut = 1000
+        # the verify shape with its depth cut, against the plain version:
+        # the squeeze, its snapshot and regrasp at 200 and 200 steps of the
+        # second squeeze
+        cut = K1_JACOBI_VERIFY_CUT
         ckw = {**ekw, "steps": cut}
         c_out = rollout2d.rollout(*arrs16, eposes, **ckw)
         torch.cuda.synchronize()
@@ -1027,11 +1143,14 @@ def phase_jacobi_design(dev) -> dict:
                                   sum_group=rollout2d.THREADS_PER_ROLLOUT)
         torch.cuda.synchronize()
         cut_plain_s = time.perf_counter() - t0
-        bitwise(f"K1 Jacobi verify 16x384x{cut} (depth cut from 8,000; "
-                f"regrasp and snapshot at {ekw['snapshot_step']})", c_out,
-                c_ref, range(8))
-        print(f"  plain Jacobi K1 at 16x384x{cut}: {cut_plain_s:.1f}s",
-              flush=True)
+        bitwise(f"K1 Jacobi verify 16x384x{cut} (depth cut from 8,000 to "
+                f"{cut}, 1,000 before the time limit's cut; regrasp and "
+                f"snapshot at {ekw['snapshot_step']})", c_out, c_ref,
+                range(8))
+        c_full = float(c_out[6][:, ::128].float().mean())
+        check(c_full > 0, f"K1 Jacobi verify cut to {cut}: no full steps")
+        print(f"  plain Jacobi K1 at 16x384x{cut}: {cut_plain_s:.1f}s; full "
+              f"steps per block {c_full:.0f} of {cut}", flush=True)
         ev_np = {k: v.cpu().numpy() for k, v in zip(NAMES, ev)}
         ev_bound, ev_bound_by = bound_ms(
             k1_jacobi_flops(contour.shape[0], s_, ekw["steps"],
@@ -1105,6 +1224,35 @@ def k2_plain_bitwise(what, kernel, plain, names) -> None:
     check(not bad, f"{what}: planes {bad} differ from the plain version")
     print(f"  {what}: all 12 planes bitwise equal to the plain version",
           flush=True)
+
+
+def plain_cut_k2(what, kernel, plain, flops, steps: int) -> dict:
+    """K2 at the datagen shape (8 x 9,088 poses) with its depth cut from 800
+    to ``steps``: ``kernel(steps)`` timed with CUDA events, ``plain(steps)``
+    on the same inputs on the host clock, all 12 planes bitwise equal, the
+    bound of this work from ``flops(outputs, steps)``. The kernel's step
+    counters must show full-solve steps."""
+    import torch
+
+    from dgdm_tpu_torch.sim.rollout3d_ref import OUT_NAMES
+
+    ms, out = timed_cuda(lambda: kernel(steps), reps=1, warm=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain(steps)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    k2_plain_bitwise(f"{what} 8x9088x{steps} (depth cut from 800 to {steps}, "
+                     f"all 800 before the time limit's cut)", out, ref,
+                     OUT_NAMES)
+    full = float(out[9][:, ::128].float().mean())
+    check(full > 0, f"{what} cut to {steps} steps: no full-solve steps")
+    bound, by = bound_ms(flops(out, steps), k2_bytes(8, 256, 9088))
+    print(f"  {what} 8x9088x{steps}: kernel {ms:.1f} ms, plain "
+          f"{plain_s:.1f}s, bound {bound:.2f} ms ({by}); full steps per block "
+          f"{full:.1f} of {steps}", flush=True)
+    return {"steps": steps, "kernel_ms": ms, "plain_ms": 1e3 * plain_s,
+            "bound_ms": bound, "bound_by": by, "full_steps_per_block": full}
 
 
 def jacobi_parity(out, ref, what: str, valid_min: float = 0.95) -> dict:
@@ -1332,14 +1480,6 @@ def phase_3d_solvers(dev) -> dict:
               and np.array_equal(rv["valid"][:, :9000], valid),
               "(a) profile_pairs_3d returns this kernel's outputs")
         check((rv["ccheap"] == 0).all(), "Jacobi: no cheap steps")
-        # the whole 800 steps: the grip begins after ~300
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        a_ref = profile_batch_ref(*arrs8, poses, sum_group=g32)
-        torch.cuda.synchronize()
-        a_plain_s = time.perf_counter() - t0
-        k2_plain_bitwise("K2 Jacobi datagen 8x9088x800", raw, a_ref,
-                         OUT_NAMES)
         a_bound, a_bound_by = bound_ms(
             k2_jacobi_flops(256, SIM.steps_3d, raw[9].cpu(), raw[10].cpu(),
                             raw[11].cpu()), k2_bytes(8, 256, 9088))
@@ -1348,11 +1488,21 @@ def phase_3d_solvers(dev) -> dict:
               f"{a_call_s:.2f}s on the host clock, kernel {dg_ms:.1f} ms "
               f"(calls {', '.join(f'{t:.1f}' for t in dg_runs)}: spread "
               f"{spread:.2f}%; not measured here: the earlier design, commit "
-              f"287298e, 4,027 ms in PERF.md section 6), plain "
-              f"{1e3 * a_plain_s:.0f} ms, bound {a_bound:.2f} ms "
-              f"({a_bound_by}), {100.0 * a_bound / dg_ms:.1f}% of it; full "
-              f"steps per block {rv['cfull'][:, ::128].mean():.0f} of 800, "
-              f"valid {rv['valid'].mean():.4f}", flush=True)
+              f"287298e, 4,027 ms in PERF.md section 6), bound "
+              f"{a_bound:.2f} ms ({a_bound_by}), "
+              f"{100.0 * a_bound / dg_ms:.1f}% of it; full steps per block "
+              f"{rv['cfull'][:, ::128].mean():.0f} of 800, valid "
+              f"{rv['valid'].mean():.4f}", flush=True)
+        # the plain version with its depth cut: the grip begins after ~300
+        # steps
+        a_cut = plain_cut_k2(
+            "K2 Jacobi datagen", lambda steps: rollout3d.rollout(
+                *arrs8, poses, steps=steps),
+            lambda steps: profile_batch_ref(*arrs8, poses, steps=steps,
+                                            sum_group=g32),
+            lambda o, steps: k2_jacobi_flops(256, steps, o[9].cpu(),
+                                             o[10].cpu(), o[11].cpu()),
+            K2_JACOBI_DATAGEN_CUT)
         gold = np.load(os.path.join(ROOT, "tests", "fixtures",
                                     "rollout3d_jacobi_golden.npz"))
         check(str(gold["solver"]) == "jacobi", "Jacobi golden fixture")
@@ -1372,7 +1522,7 @@ def phase_3d_solvers(dev) -> dict:
                 f"kernel", valid_min=JACOBI_VALID_MIN[sched])
         out["datagen"] = {"kernel_ms": dg_ms, "runs_ms": dg_runs,
                           "plan": dg_plan, "call_s": a_call_s,
-                          "plain_ms": 1e3 * a_plain_s,
+                          "cut": a_cut,
                           "bound_ms": a_bound, "bound_by": a_bound_by,
                           "full_steps_per_block": float(
                               rv["cfull"][:, ::128].mean()),
@@ -1421,9 +1571,9 @@ def phase_3d_solvers(dev) -> dict:
                   for i in range(16)),
               "sim_eval_batch_3d's profiles are this kernel's snapshot")
         # the plain version takes ~75 ms a step at this shape (its time is
-        # the host's, 2,048 rollouts); 1,000 steps cover the squeeze, the
-        # snapshot and regrasp at 800 and 200 steps of the second squeeze
-        cut_b = 1000
+        # the host's, 2,048 rollouts); the cut covers the squeeze, the
+        # snapshot and regrasp at 800 and 50 steps of the second squeeze
+        cut_b = K2_JACOBI_VERIFY_CUT
         ckw = dict(ekw, steps=cut_b)
         cb_ms, cb_out = timed_cuda(lambda: rollout3d.rollout(
             *arrs16, eposes, **ckw), reps=1)
@@ -1433,7 +1583,8 @@ def phase_3d_solvers(dev) -> dict:
         torch.cuda.synchronize()
         b_plain_s = time.perf_counter() - t0
         k2_plain_bitwise(f"K2 Jacobi verify 16x128x{cut_b} (depth cut from "
-                         f"32,000; regrasp and snapshot at 800)", cb_out,
+                         f"32,000 to {cut_b}, 1,000 before the time limit's "
+                         f"cut; regrasp and snapshot at 800)", cb_out,
                          cb_ref, OUT_NAMES)
         b_bound, b_bound_by = bound_ms(
             k2_jacobi_flops(256, SIM.eval_steps_3d, ev[9].cpu(),
@@ -1480,13 +1631,14 @@ def phase_3d_solvers(dev) -> dict:
               "(c) profile_batch returns this kernel's counters")
         fix_ms, fraw = timed_cuda(lambda: rollout3d.rollout(*arrs8n, poses),
                                   reps=1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        t_ref = profile_batch_ref(*arrs8n, poses, sum_group=g32, **tol)
-        torch.cuda.synchronize()
-        c_plain_s = time.perf_counter() - t0
-        k2_plain_bitwise("K2 newton_tol datagen 8x9088x800 (newton_iters 6, "
-                         "newton_tol 1e-4)", traw, t_ref, OUT_NAMES)
+        c_cut = plain_cut_k2(
+            "K2 newton_tol datagen (newton_iters 6, newton_tol 1e-4)",
+            lambda steps: rollout3d.rollout(*arrs8n, poses, steps=steps,
+                                            **tol),
+            lambda steps: profile_batch_ref(*arrs8n, poses, steps=steps,
+                                            sum_group=g32, **tol),
+            lambda o, steps: k2_flops(256, steps, o[9].cpu(), o[10].cpu(),
+                                      o[11].cpu()), K2_NEWTON_TOL_CUT)
         cf = traw[9][:, ::128].cpu().numpy()
         ci = traw[11][:, ::128].cpu().numpy()
         per = ci[cf > 0] / cf[cf > 0]
@@ -1499,8 +1651,8 @@ def phase_3d_solvers(dev) -> dict:
               f"fixed count of {rollout3d.NEWTON_KERNEL_ITERS3}: "
               f"{fix_ms:.1f} ms), bound "
               f"{c_bound:.2f} ms ({c_bound_by}), "
-              f"{100.0 * c_bound / tol_ms:.1f}% of it, plain "
-              f"{c_plain_s:.1f}s; Newton iterations a full step per block: "
+              f"{100.0 * c_bound / tol_ms:.1f}% of it; Newton iterations a "
+              f"full step per block: "
               f"mean {per.mean():.2f}, max {per.max():.2f} (fixed count: "
               f"{float(fraw[11][:, ::128].sum() / fraw[9][:, ::128].sum()):.2f}"
               f")"
@@ -1527,7 +1679,7 @@ def phase_3d_solvers(dev) -> dict:
                 f"TPU kernel")
         out["newton_tol"] = {
             "kernel_ms": tol_ms, "fixed_kernel_ms": fix_ms, "plan": tol_plan,
-            "call_s": c_call_s, "plain_ms": 1e3 * c_plain_s,
+            "call_s": c_call_s, "cut": c_cut,
             "bound_ms": c_bound, "bound_by": c_bound_by,
             "iters_per_full_step_mean": float(per.mean()),
             "iters_per_full_step_max": float(per.max()),
@@ -1554,7 +1706,7 @@ def phase_3d_solvers(dev) -> dict:
         sc16 = to_device(scenes16, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cut_d = 1600
+        cut_d = PURE3D_EVAL_CUT
         ed, ep, ef, efp = eval_rollout_batch_3d(
             sc16, th45, first_squeeze=800, total_steps=cut_d,
             regrasp_every=800)
@@ -1569,15 +1721,19 @@ def phase_3d_solvers(dev) -> dict:
                 ed.cpu().numpy(), bool)),
             (kb[0][:, :nrot].cpu().numpy(), kb[1][:, :nrot].cpu().numpy(),
              np.ones((16, nrot), bool)),
-            f"eval_rollout_batch_3d 16x45x{cut_d} (depth cut from 32,000) "
-            f"vs K2's snapshot ({ev_s:.1f}s)", "newton")
+            f"eval_rollout_batch_3d 16x45x{cut_d} (depth cut from 32,000 to "
+            f"{cut_d}, 1,600 before the time limit's cut; snapshot and "
+            f"regrasp at 800) vs K2's snapshot ({ev_s:.1f}s)", "newton")
+        tr_steps = PURE3D_TRACE_STEPS
         tr = engine3d.rollout_trace3d(engine3d.with_hgrid(to_device(
             type(scenes16)(**{f: (None if v is None else v[0])
                               for f, v in vars(scenes16).items()}), dev)),
             torch.tensor([0.0, 0.0, float(thetas[0])], device=dev),
-            steps=800, every=20)
-        check(tuple(tr.shape) == (40, 9) and torch.isfinite(tr).all(),
-              f"rollout_trace3d: finite (40, 9), got {tuple(tr.shape)}")
+            steps=tr_steps, every=20)
+        check(tuple(tr.shape) == (tr_steps // 20, 9)
+              and torch.isfinite(tr).all(),
+              f"rollout_trace3d: finite ({tr_steps // 20}, 9), got "
+              f"{tuple(tr.shape)}")
         cost = pure_step_cost(dev, scenes8, grid)
         # one step card vs CPU for each solver, from a mid-squeeze state
         sc2 = engine3d.expand_scene3(engine3d.with_hgrid(
@@ -1605,7 +1761,8 @@ def phase_3d_solvers(dev) -> dict:
             check(err < 1e-5, f"one {solver} step card vs CPU: {err:.3g}")
         print(f"  one step card vs CPU (largest difference relative to each "
               f"state leaf's largest entry): {card_cpu}; rollout_trace3d "
-              f"{tuple(tr.shape)}", flush=True)
+              f"{tuple(tr.shape)} ({tr_steps} steps, every 20; 800 before "
+              f"the time limit's cut)", flush=True)
         out["pure"] = {"profile": pure, "eval": dict(eval_st, seconds=ev_s),
                        "cost": cost, "card_vs_cpu": card_cpu}
     finally:
@@ -2261,13 +2418,15 @@ def phase_render(dev, pairs2d: list, pairs3d: list) -> dict:
     out["trajectory"] = {"seconds": traj_s, "card_vs_cpu": traj_err}
 
     # ---- (b) the 2D traces of phase 4's design pairs -----------------------
-    steps, every, regrasp = 2000, 20, 200
+    steps, every, regrasp = RENDER_2D_STEPS, 20, 200
     full_steps = sample_cli.render_schedule(False)[0]
     items, timing = sample_cli.render_inputs(pairs2d, False, dev, steps,
                                              every, regrasp, grid_size=360)
     tr = np.stack([it["trace"] for it in items])
-    check(tr.shape == (len(pairs2d), 100, 5) and np.isfinite(tr).all(),
-          f"13 (b) finite (6, 100, 5) traces: {tr.shape}")
+    check(tr.shape == (len(pairs2d), steps // every, 5)
+          and np.isfinite(tr).all(),
+          f"13 (b) finite ({len(pairs2d)}, {steps // every}, 5) traces: "
+          f"{tr.shape}")
     turn = float(np.abs(tr[..., 2] - np.float32(math.pi)).max())
     check(turn > 1e-2, f"13 (b) the object did not move (max |dtheta| "
           f"{turn:.3g})")
@@ -2284,39 +2443,46 @@ def phase_render(dev, pairs2d: list, pairs3d: list) -> dict:
     def step2():
         state[0] = engine2d.step(sc, state[0], ctrl)
 
+    # the checks' own traces: a subset of the pairs, each alone on the card
+    # and together on the CPU
+    sel = [0, len(pairs2d) - 1]
     with torch.inference_mode():
         prof2 = step_profile(step2)
         t0 = time.perf_counter()
         alone = np.stack([engine2d.rollout_trace(
-            to_device(s, dev), pose, steps=400, every=every,
-            regrasp_every=regrasp).cpu().numpy() for s in scenes])
+            to_device(scenes[i], dev), pose, steps=400, every=every,
+            regrasp_every=regrasp).cpu().numpy() for i in sel])
         alone_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cpu_items, _ = sample_cli.render_inputs(pairs2d, False, "cpu", 400,
-                                            every, regrasp)
+    cpu_items, _ = sample_cli.render_inputs([pairs2d[i] for i in sel], False,
+                                            "cpu", 400, every, regrasp)
     cpu_s = time.perf_counter() - t0
     cpu_tr = np.stack([it["trace"] for it in cpu_items])
     print(f"13 (b) 2D render traces: {len(pairs2d)} design pairs of phase 4 "
-          f"x {steps} steps (cut from {full_steps}), every {every}, regrasp "
+          f"x {steps} steps (cut from {full_steps}; 2,000 before the time "
+          f"limit's cut), every {every}, regrasp "
           f"every {regrasp}, one batched trace on the card: "
           f"{timing['trace_s']:.2f}s, {ms2:.2f} ms a step; "
           f"{prof2['kernels_per_step']:.0f} CUDA kernels a step, the card "
           f"busy {prof2['busy_share']} (torch.profiler, 10 steps); "
           f"{full_steps} steps projected {ms2 * full_steps / 1e3:.1f}s; max "
           f"|theta - pi| {turn:.4f}", flush=True)
-    print(f"  the checks' own traces: each pair alone x 400 steps "
-          f"{alone_s:.2f}s on the card, the batched CPU trace x 400 steps "
-          f"{cpu_s:.2f}s", flush=True)
+    print(f"  the checks' own traces: pairs {sel} of {len(pairs2d)} (all "
+          f"{len(pairs2d)} before the time limit's cut), each alone x 400 "
+          f"steps {alone_s:.2f}s on the card, together on the CPU x 400 "
+          f"steps {cpu_s:.2f}s", flush=True)
     rows = 400 // every
     batched_vs_alone = trace_bars(
-        "13 (b) batched vs each pair alone on the card, 400 steps",
-        tr[:, :rows], alone, [2], [0, 1, 3, 4])
-    card_vs_cpu = trace_bars("13 (b) card vs a batched CPU trace, 400 steps",
-                             tr[:, :rows], cpu_tr, [2], [0, 1, 3, 4])
+        f"13 (b) batched vs pairs {sel} alone on the card, 400 steps",
+        tr[sel, :rows], alone, [2], [0, 1, 3, 4])
+    card_vs_cpu = trace_bars(f"13 (b) card vs a CPU trace of pairs {sel}, "
+                             f"400 steps", tr[sel, :rows], cpu_tr, [2],
+                             [0, 1, 3, 4])
     out["trace_2d"] = {"pairs": len(pairs2d), "steps": steps,
                        "seconds": timing["trace_s"], "ms_per_step": ms2,
                        "projected_s_full_depth": ms2 * full_steps / 1e3,
-                       "max_turn": turn, **prof2, "alone_s": alone_s,
+                       "max_turn": turn, **prof2, "alone_pairs": sel,
+                       "alone_s": alone_s,
                        "cpu_s": cpu_s,
                        "batched_vs_alone": batched_vs_alone,
                        "card_vs_cpu": card_vs_cpu}
@@ -2325,7 +2491,8 @@ def phase_render(dev, pairs2d: list, pairs3d: list) -> dict:
     colours = {tuple(c) for c in viz.FRAME_COLORS}
     for it in items:
         fr = it["frames"]
-        check(fr.shape == (100, 128, 128, 3) and fr.dtype == np.uint8,
+        check(fr.shape == (steps // every, 128, 128, 3)
+              and fr.dtype == np.uint8,
               f"13 (c) frames {fr.shape} {fr.dtype}")
         seen = {tuple(c) for c in np.unique(fr.reshape(-1, 3), axis=0)}
         first = {tuple(c) for c in np.unique(fr[0].reshape(-1, 3), axis=0)}
@@ -2351,12 +2518,14 @@ def phase_render(dev, pairs2d: list, pairs3d: list) -> dict:
     qerr = float(np.abs(np.linalg.norm(tr3[..., 3:7], axis=-1) - 1).max())
     check(qerr <= 1e-4, f"13 (d) quaternion norms off by {qerr:.3g}")
     pose3 = torch.tensor([0.0, 0.0, 0.7], device=dev)
+    sel3 = [0]
     t0 = time.perf_counter()
     with torch.inference_mode():
         alone3 = np.stack([engine3d.rollout_trace3d(to_device(
             engine3d.with_hgrid(engine3d.make_scene(
-                p["y"][:21], p["y"][21:], *p["object"])), dev), pose3,
-            steps=steps3, every=every3).cpu().numpy() for p in pairs3d])
+                pairs3d[i]["y"][:21], pairs3d[i]["y"][21:],
+                *pairs3d[i]["object"])), dev), pose3,
+            steps=steps3, every=every3).cpu().numpy() for i in sel3])
     alone3_s = time.perf_counter() - t0
     for p, it in zip(pairs3d, items3):
         for row in it["trace"][[0, -1]]:
@@ -2369,13 +2538,16 @@ def phase_render(dev, pairs2d: list, pairs3d: list) -> dict:
           f"x {steps3} steps, every {every3}, one batched trace on the card: "
           f"{timing3['trace_s']:.2f}s, {ms3:.2f} ms a step (scenes and "
           f"height grids {timing3['host_s']:.2f}s on the host); quaternion "
-          f"norms within {qerr:.3g} of 1; scene points finite; each pair "
-          f"alone {alone3_s:.2f}s", flush=True)
-    b3 = trace_bars("13 (d) batched vs each pair alone on the card, 800 steps",
-                    tr3, alone3, [3, 4, 5, 6], [0, 1, 2, 7, 8])
+          f"norms within {qerr:.3g} of 1; scene points finite; pairs {sel3} "
+          f"of {len(pairs3d)} alone (all {len(pairs3d)} before the time "
+          f"limit's cut) {alone3_s:.2f}s", flush=True)
+    b3 = trace_bars(f"13 (d) batched vs pairs {sel3} alone on the card, "
+                    f"{steps3} steps", tr3[sel3], alone3, [3, 4, 5, 6],
+                    [0, 1, 2, 7, 8])
     out["trace_3d"] = {"pairs": len(pairs3d), "steps": steps3,
                        "seconds": timing3["trace_s"], "ms_per_step": ms3,
-                       "quat_norm_err": qerr, "alone_s": alone3_s,
+                       "quat_norm_err": qerr, "alone_pairs": sel3,
+                       "alone_s": alone3_s,
                        "host_s": timing3["host_s"], "batched_vs_alone": b3}
 
     # ---- (e) the writers ---------------------------------------------------
@@ -2648,6 +2820,8 @@ def main() -> int:
         call_k_ms, sout = timed_cuda(
             lambda: rollout2d.rollout(*arrs_s, eposes, **ekw), reps=1)
         call_full = float(sout[6][:, ::128].mean())
+        objectives = objective_check(gpath, dpath, save_dir, oids[0],
+                                     ocontours[0], dev)
     check(launches["rollout2d"] > 0 and launches["rollout2d_jacobi"] == 0,
           f"the design path (Newton) launches K1's Newton instantiation "
           f"only: {launches}")
@@ -2728,6 +2902,7 @@ def main() -> int:
                  "full_steps_per_block": ev_full,
                  "cheap_steps_per_block": ev_cheap},
         "design_loop_s": design_s, "launches": launches,
+        "objective_check": objectives,
         "design_call": {"seconds": call_s, "kernel_ms": call_k_ms,
                         "full_steps_per_block": call_full},
         "k2": k2, "train_path": train, "jacobi": jac, "solvers_3d": s3,
@@ -2825,15 +3000,20 @@ def main() -> int:
         "max_abs_err": max(v["max_abs_err"] for st in
                            s3["datagen"]["golden"].values()
                            for v in st.values()),
-        "ms": s3["datagen"]["kernel_ms"],
-        "plain_ms": s3["datagen"]["plain_ms"],
-        "bound_ms": s3["datagen"]["bound_ms"],
-        "bound_by": s3["datagen"]["bound_by"], "library_ms": None,
-        "shape": "8 pairs x 9088 poses x 800 steps (datagen)",
+        # kernel, plain version and bound on the same work: the datagen
+        # shape with its depth cut
+        "ms": s3["datagen"]["cut"]["kernel_ms"],
+        "plain_ms": s3["datagen"]["cut"]["plain_ms"],
+        "bound_ms": s3["datagen"]["cut"]["bound_ms"],
+        "bound_by": s3["datagen"]["cut"]["bound_by"], "library_ms": None,
+        "shape": f"8 pairs x 9088 poses x {s3['datagen']['cut']['steps']} "
+                 f"steps (datagen, depth cut from 800)",
         "registers": registers["rollout3d_jacobi"],
         "spill_bytes": ptxas["rollout3d_jacobi"][1],
         "shared_bytes": shared["rollout3d_jacobi"],
         "max_active_clusters": s3["datagen"]["plan"]["max_active_clusters"],
+        "datagen_ms": s3["datagen"]["kernel_ms"],
+        "datagen_bound_ms": s3["datagen"]["bound_ms"],
         "datagen_runs_ms": s3["datagen"]["runs_ms"],
         "verify_15_grippers_ms": s3["verify"]["kernel_ms_15"],
         "verify_ms": s3["verify"]["kernel_ms"],
@@ -2847,20 +3027,29 @@ def main() -> int:
         "max_abs_err": max(v["max_abs_err"] for st in
                            s3["newton_tol"]["golden"].values()
                            for v in st.values()),
-        "ms": s3["newton_tol"]["kernel_ms"],
-        "plain_ms": s3["newton_tol"]["plain_ms"],
-        "bound_ms": s3["newton_tol"]["bound_ms"],
-        "bound_by": s3["newton_tol"]["bound_by"], "library_ms": None,
-        "shape": "8 pairs x 9088 poses x 800 steps (datagen), newton_iters "
-                 "6, newton_tol 1e-4",
+        "ms": s3["newton_tol"]["cut"]["kernel_ms"],
+        "plain_ms": s3["newton_tol"]["cut"]["plain_ms"],
+        "bound_ms": s3["newton_tol"]["cut"]["bound_ms"],
+        "bound_by": s3["newton_tol"]["cut"]["bound_by"], "library_ms": None,
+        "shape": f"8 pairs x 9088 poses x {s3['newton_tol']['cut']['steps']} "
+                 f"steps (datagen, depth cut from 800), newton_iters 6, "
+                 f"newton_tol 1e-4",
         "registers": registers["rollout3d_newton_tol"],
         "spill_bytes": ptxas["rollout3d_newton_tol"][1],
         "shared_bytes": shared["rollout3d_newton_tol"],
+        "datagen_ms": s3["newton_tol"]["kernel_ms"],
+        "datagen_bound_ms": s3["newton_tol"]["bound_ms"],
         "fixed_count_ms": s3["newton_tol"]["fixed_kernel_ms"],
         "iters_per_full_step_mean": s3["newton_tol"][
             "iters_per_full_step_mean"],
         "iters_per_full_step_max": s3["newton_tol"]["iters_per_full_step_max"],
     }]}), flush=True)
+    total_s = time.perf_counter() - t_start
+    phase_s = ", ".join(f"{k.split()[0]} {v:.1f}"
+                        for k, v in clock.seconds.items())
+    print(f"chip_smoke total {total_s:.1f} s of {TIME_LIMIT_S:,} s "
+          f"({100.0 * total_s / TIME_LIMIT_S:.1f}%; phase seconds "
+          f"{phase_s})", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

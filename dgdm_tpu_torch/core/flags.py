@@ -1,9 +1,10 @@
 """Shared CLI flag parser — port of ``dgdm_tpu/core/flags.py``.
 
-Same names and defaults, plus ``--device`` (``cuda`` unless the caller asks
-for the CPU). ``--use_pallas``/``--no_pallas`` keep their names: in the port
-they are accepted for command-line compatibility and the hand-written CUDA
-kernels always run on a CUDA device.
+``build_parser`` and ``parse`` with the same names and defaults, plus
+``--device`` (``cuda`` unless the caller asks for the CPU).
+``--use_pallas``/``--no_pallas`` keep their names: in the port they are
+accepted for command-line compatibility and the hand-written CUDA kernels
+always run on a CUDA device.
 """
 
 from __future__ import annotations
@@ -81,3 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device of the run: 'cuda' (hand-written "
                         "kernels) or 'cpu' (their plain PyTorch versions)")
     return p
+
+
+def parse(argv=None):
+    return build_parser().parse_args(argv)
