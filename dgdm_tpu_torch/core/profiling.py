@@ -1,18 +1,32 @@
 """Tracing / profiling utilities — port of ``dgdm_tpu/core/profiling.py``.
 
-A step timer that logs through the metric sink, and ``torch.profiler``
-traces (view with TensorBoard's profiler plugin or ``chrome://tracing``).
+A step timer that logs through the metric sink, ``torch.profiler`` traces
+of a training loop's steps (view with TensorBoard's profiler plugin or
+``chrome://tracing``), and ``TRACER``, the program's host span recorder.
 On a CUDA device the timer synchronises before it reads the clock, so a rate
 counts finished work and not work that was only enqueued.
+
+``TRACER.span(name)`` marks where the program does a piece of its work
+(``guidance.step``, ``simeval.scenes``, ``pipeline.bake``: dotted names,
+module then part). A span reads ``time.perf_counter`` on entry and exit and
+holds the difference in ``.seconds`` whether or not the recorder is on; it
+never synchronises the device or reads a tensor, so it times the host's
+part of the work (for an asynchronous launch, the enqueue). The recorder
+keeps ``(name, t0, t1, thread_id)`` between ``TRACER.start()`` and
+``TRACER.stop()``, and also while a ``torch.profiler`` session runs (as
+``torch.profiler.record_function`` records only then), so that a device
+trace always has the program's host spans beside it on one clock.
 """
 
 from __future__ import annotations
 
-import contextlib
+import functools
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 class StepTimer:
@@ -105,15 +119,75 @@ class TraceWindow:
             self._prof = None
 
 
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """``torch.profiler`` trace context, written to ``log_dir``."""
-    with _profiler(log_dir):
-        yield
+class Span:
+    """One timed region: ``with TRACER.span(name) as s: ...``, then
+    ``s.seconds``."""
+
+    __slots__ = ("_tracer", "name", "t0", "seconds")
+
+    def __init__(self, tracer: "Tracer", name: str):
+        self._tracer = tracer
+        self.name = name
+        self.seconds = 0.0
+
+    def __enter__(self) -> "Span":
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        t1 = time.perf_counter()
+        self.seconds = t1 - self.t0
+        # PyTorch's own flag of a running torch.profiler session
+        if self._tracer.on or getattr(_autograd_profiler,
+                                      "_is_profiler_enabled", False):
+            self._tracer._record(self.name, self.t0, t1)
+        return False
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region for profiler timelines."""
-    with torch.profiler.record_function(name):
-        yield
+class Tracer:
+    """The host span recorder (one per process: ``TRACER``). Spans may nest
+    and may be opened from several threads."""
+
+    def __init__(self):
+        self.on = False
+        self._spans: List[Tuple[str, float, float, int]] = []
+        self._lock = threading.Lock()
+
+    def span(self, name: str) -> Span:
+        return Span(self, name)
+
+    def traced(self, name: str):
+        """Decorator: each call of the function is one span ``name``."""
+        def wrap(fn):
+            @functools.wraps(fn)
+            def traced_fn(*args, **kwargs):
+                with Span(self, name):
+                    return fn(*args, **kwargs)
+            return traced_fn
+        return wrap
+
+    def _record(self, name: str, t0: float, t1: float) -> None:
+        item = (name, t0, t1, threading.get_ident())
+        with self._lock:
+            self._spans.append(item)
+
+    def start(self) -> None:
+        """Forget the spans recorded so far and record from now on."""
+        with self._lock:
+            self._spans = []
+        self.on = True
+
+    def stop(self) -> List[Tuple[str, float, float, int]]:
+        """Stop recording (a running ``torch.profiler`` session still
+        records); returns the spans, which stay until the next ``start``."""
+        self.on = False
+        return self.spans()
+
+    def spans(self) -> List[Tuple[str, float, float, int]]:
+        """The spans recorded so far, (name, t0, t1, thread_id) on the
+        ``time.perf_counter`` clock, in the order they ended."""
+        with self._lock:
+            return list(self._spans)
+
+
+TRACER = Tracer()

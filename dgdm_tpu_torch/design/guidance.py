@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from dgdm_tpu_torch.core.config import DIFFUSION, GUIDANCE
+from dgdm_tpu_torch.core.profiling import TRACER
 from dgdm_tpu_torch.design.objectives import (
     SIMPLE_OBJECTIVES,
     convergence_centers,
@@ -98,6 +99,7 @@ class GuidedSampler2D:
         return torch.tensor(float(t), dtype=torch.float32,
                             device=self.device) / self.num_train_timesteps
 
+    @TRACER.traced("guidance.eps")
     def _eps(self, x: torch.Tensor, t: int) -> torch.Tensor:
         with torch.no_grad():
             tb = torch.full((x.shape[0],), t, dtype=torch.int64,
@@ -154,6 +156,7 @@ class GuidedSampler2D:
 
     # -- guidance gradient ----------------------------------------------------
 
+    @TRACER.traced("guidance.grad")
     def cond_grad(self, x: torch.Tensor, t: int, obj_feat: torch.Tensor,
                   weights: torch.Tensor, rotate_sq: bool,
                   poses: torch.Tensor) -> torch.Tensor:
@@ -192,6 +195,7 @@ class GuidedSampler2D:
         g = torch.stack(grads).sum(0)[..., None]                  # (B, L, 1)
         return meshlib.all_reduce_sum(self.mesh, g, "sp")
 
+    @TRACER.traced("guidance.grad")
     def _sweep_grad(self, x, t, obj_feats, weights, rsq, poses,
                     row_budget: int = 65536) -> torch.Tensor:
         """d(sum objective)/dx for K fused (objective, object) pairs.
@@ -233,15 +237,17 @@ class GuidedSampler2D:
     def sample(self, noise, obj_flat, objective: str, scale: float,
                centers=None, ori_range=(-1.0, 1.0)) -> torch.Tensor:
         """One guided DDIM run. noise (B, L, 1) -> samples (B, L, 1)."""
-        x = self._tensor(noise)
-        poses = self._poses(ori_range)
-        weights, rotate_sq = self._objective_weights(objective, centers,
-                                                     x.shape[0])
-        obj_feat = self._encode_object(self._tensor(obj_flat))
-        scale = self._tensor(scale)
+        with TRACER.span("guidance.inputs"):
+            x = self._tensor(noise)
+            poses = self._poses(ori_range)
+            weights, rotate_sq = self._objective_weights(objective, centers,
+                                                         x.shape[0])
+            obj_feat = self._encode_object(self._tensor(obj_flat))
+            scale = self._tensor(scale)
         for t, pt in self._schedule():
-            g = self.cond_grad(x, t, obj_feat, weights, rotate_sq, poses)
-            x = self._guided_step(x, t, pt, g, scale)
+            with TRACER.span("guidance.step"):
+                g = self.cond_grad(x, t, obj_feat, weights, rotate_sq, poses)
+                x = self._guided_step(x, t, pt, g, scale)
         return x
 
     def sample_sweep(self, noise, obj_feats, weights, rsq, scales,
@@ -250,17 +256,20 @@ class GuidedSampler2D:
         runs K*B-row batches and the classifier gradient K*chunk*B rows per
         denoise step. Returns (K, B, L, 1). 'convergence' stays on
         ``sample``."""
-        noise = self._tensor(noise)
-        k = obj_feats.shape[0]
-        poses = self._poses(ori_range)
-        x = noise[None].expand(k, *noise.shape).clone()
-        scales = self._tensor(scales)[:, None, None, None]
+        with TRACER.span("guidance.inputs"):
+            noise = self._tensor(noise)
+            k = obj_feats.shape[0]
+            poses = self._poses(ori_range)
+            x = noise[None].expand(k, *noise.shape).clone()
+            scales = self._tensor(scales)[:, None, None, None]
         for t, pt in self._schedule():
-            g = self._sweep_grad(x, t, obj_feats, self._tensor(weights),
-                                 self._tensor(rsq), poses)
-            x = self._guided_step(x, t, pt, g, scales)
+            with TRACER.span("guidance.step"):
+                g = self._sweep_grad(x, t, obj_feats, self._tensor(weights),
+                                     self._tensor(rsq), poses)
+                x = self._guided_step(x, t, pt, g, scales)
         return x
 
+    @TRACER.traced("guidance.inputs")
     def sweep_inputs(self, objectives: Sequence[str], obj_flats,
                      fingers_3d: bool):
         """(obj_feats, weights, rsq, scales, labels) for sample_sweep from
@@ -292,18 +301,21 @@ class GuidedSampler2D:
                             scale: float,
                             ori_range=(-1.0, 1.0)) -> torch.Tensor:
         """Gradient averaged over objects (generator/diffusion.py:621-709)."""
-        x = self._tensor(noise)
-        poses = self._poses(ori_range)
-        weights, rotate_sq = self._objective_weights(objective, None,
-                                                     x.shape[0])
-        with torch.no_grad():
-            obj_feats = self.classifier.encode_object(self._tensor(obj_flats))
-        scale = self._tensor(scale)
+        with TRACER.span("guidance.inputs"):
+            x = self._tensor(noise)
+            poses = self._poses(ori_range)
+            weights, rotate_sq = self._objective_weights(objective, None,
+                                                         x.shape[0])
+            with torch.no_grad():
+                obj_feats = self.classifier.encode_object(
+                    self._tensor(obj_flats))
+            scale = self._tensor(scale)
         for t, pt in self._schedule():
-            g = torch.mean(torch.stack([
-                self.cond_grad(x, t, of, weights, rotate_sq, poses)
-                for of in obj_feats]), dim=0)
-            x = self._guided_step(x, t, pt, g, scale)
+            with TRACER.span("guidance.step"):
+                g = torch.mean(torch.stack([
+                    self.cond_grad(x, t, of, weights, rotate_sq, poses)
+                    for of in obj_feats]), dim=0)
+                x = self._guided_step(x, t, pt, g, scale)
         return x
 
     def profile_classes(self, x, obj_flat, threshold_std0: float,
@@ -325,6 +337,7 @@ class GuidedSampler2D:
         thr = float(np.float32(threshold_std0))
         return torch.where(d0 > thr, 2, torch.where(d0 < -thr, 0, 1))
 
+    @TRACER.traced("guidance.centers")
     def find_convergence_centers(self, unguided, obj_flat,
                                  threshold_std0: float) -> torch.Tensor:
         cls = self.profile_classes(unguided, obj_flat, threshold_std0)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from dgdm_tpu_torch.core.config import SIM
+from dgdm_tpu_torch.core.profiling import TRACER
 from dgdm_tpu_torch.eval.metrics import metric2objective, profile_metrics_2d
 from dgdm_tpu_torch.geom.fingers import denormalize_y
 from dgdm_tpu_torch.parallel.mesh import all_gather_rows
@@ -71,6 +72,21 @@ def eval_rollout_batch(
     return d_theta, d_pos, final_theta, final_pos
 
 
+def _eval_inputs(pts_y, num_rot, ori_range, device):
+    """(this rank's denormalized designs, the orientations, the padded
+    pose grid on ``device``, the mesh) of ``sim_eval_batch_2d``."""
+    y = np.asarray(denormalize_y(pts_y))
+    thetas = (
+        np.linspace(ori_range[0], ori_range[1], num_rot) * np.pi + np.pi
+    ).astype(np.float32)
+    th_p = datagen.pad_poses(thetas[:, None])[:, 0]
+    poses = torch.as_tensor(
+        np.stack([np.zeros_like(th_p), np.zeros_like(th_p), th_p], -1)
+    ).to(device)
+    mesh, y_local = datagen.dp_split(y)
+    return y_local, thetas, poses, mesh
+
+
 def sim_eval_batch_2d(
     pts_y: np.ndarray,
     contours: Sequence[np.ndarray],
@@ -91,36 +107,39 @@ def sim_eval_batch_2d(
         pts_y = pts_y[..., 0]
     b = pts_y.shape[0]
     n = pts_y.shape[1] // 2
-    y = np.asarray(denormalize_y(pts_y))
-    thetas = (
-        np.linspace(ori_range[0], ori_range[1], num_rot) * np.pi + np.pi
-    ).astype(np.float32)
-    th_p = datagen.pad_poses(thetas[:, None])[:, 0]
-    poses = torch.as_tensor(
-        np.stack([np.zeros_like(th_p), np.zeros_like(th_p), th_p], -1)
-    ).to(device)
-
-    mesh, y_local = datagen.dp_split(y)
-    results = []
+    results, inputs = [], None
     for contour in contours:
-        stacked = datagen.stack_scenes(
-            [engine2d.make_scene(yi[:n], yi[n:], contour) for yi in y_local])
-        arrs = rollout2d.scene_arrays(stacked, calib=calib, device=device)
-        dth, dpos, fth, fpos = (
-            all_gather_rows(mesh, t[:, :num_rot].cpu().numpy())
-            for t in rollout2d.profile_batch(
+        with TRACER.span("simeval.scenes"):
+            if inputs is None:      # once, in the first object's span
+                inputs = _eval_inputs(pts_y, num_rot, ori_range, device)
+            y_local, thetas, poses, mesh = inputs
+            stacked = datagen.stack_scenes(
+                [engine2d.make_scene(yi[:n], yi[n:], contour)
+                 for yi in y_local])
+        with TRACER.span("simeval.arrays"):
+            arrs = rollout2d.scene_arrays(stacked, calib=calib,
+                                          device=device)
+        with TRACER.span("simeval.rollout"):
+            outs = rollout2d.profile_batch(
                 *arrs, poses, steps=total_steps,
-                regrasp_every=regrasp_every, snapshot_step=regrasp_every))
-        for i in range(b):
-            results.append(
-                profile_metrics_2d(
-                    dth[i],
-                    np.concatenate([dpos[i], np.zeros((num_rot, 1))], -1),
-                    fth[i],
-                    thetas,
-                    np.concatenate([fpos[i], np.zeros((num_rot, 1))], -1),
+                regrasp_every=regrasp_every, snapshot_step=regrasp_every)
+        with TRACER.span("simeval.fetch"):
+            dth, dpos, fth, fpos = (
+                all_gather_rows(mesh, t[:, :num_rot].cpu().numpy())
+                for t in outs)
+        with TRACER.span("simeval.metrics"):
+            for i in range(b):
+                results.append(
+                    profile_metrics_2d(
+                        dth[i],
+                        np.concatenate([dpos[i], np.zeros((num_rot, 1))],
+                                       -1),
+                        fth[i],
+                        thetas,
+                        np.concatenate([fpos[i], np.zeros((num_rot, 1))],
+                                       -1),
+                    )
                 )
-            )
     return results
 
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from dgdm_tpu_torch.core.config import GRIPPER_2D, OBJECT_2D, SIM
+from dgdm_tpu_torch.core.profiling import TRACER
 from dgdm_tpu_torch.geom import contour as contour_lib
 from dgdm_tpu_torch.geom import polygon as polygon_lib
 from dgdm_tpu_torch.geom.spline import cubic_basis_matrix, cubic_coef_operator
@@ -213,39 +214,41 @@ def make_scene(
     (geom/polygon.py). Pure numpy until the final float32 tensors, which stay
     on the host: ``rollout2d.scene_arrays`` moves a stacked batch to the
     device in one copy per array."""
-    coef_l, ml = _finger_host_work_2d(np.asarray(yl, np.float64))
-    coef_r, mr = _finger_host_work_2d(np.asarray(yr, np.float64))
-    fmass = np.array([ml, mr])
-    poly = contour_lib.ensure_ccw(np.asarray(contour, dtype=np.float64))
-    area, com, i0 = polygon_lib.object_mass_properties_2d(poly)
-    poly_c = upsample_contour(poly, contour_upsample)
-    spts, sw = polygon_lib.support_points(poly, grid=support_grid)
-    mass = SIM.density * area * OBJECT_2D.height
-    inertia = SIM.density * OBJECT_2D.height * i0
-    if triangulation == "uniform":
-        anchor = np.ones(1, np.float64)
-    else:
-        anchor = polygon_lib.earclip_anchor_weights(
-            poly, variant=triangulation)
-        if contour_upsample > 1:
-            k = contour_upsample
-            fr = np.arange(k, dtype=np.float64)[None, :] / k
-            nxt = np.roll(anchor, -1)
-            anchor = (anchor[:, None] * (1.0 - fr)
-                      + nxt[:, None] * fr).reshape(-1)[: len(poly_c)]
-    f32 = functools.partial(torch.as_tensor, dtype=torch.float32)
-    return Scene2D(
-        coef_l=f32(coef_l),
-        coef_r=f32(coef_r),
-        contour=f32(poly_c),
-        com=f32(com),
-        mass=f32(mass),
-        inertia=f32(inertia),
-        support_pts=f32(spts),
-        support_w=f32(sw),
-        finger_mass=f32(fmass),
-        anchor=f32(anchor),
-    )
+    with TRACER.span("scene.fingers"):
+        coef_l, ml = _finger_host_work_2d(np.asarray(yl, np.float64))
+        coef_r, mr = _finger_host_work_2d(np.asarray(yr, np.float64))
+    with TRACER.span("scene.object"):
+        fmass = np.array([ml, mr])
+        poly = contour_lib.ensure_ccw(np.asarray(contour, dtype=np.float64))
+        area, com, i0 = polygon_lib.object_mass_properties_2d(poly)
+        poly_c = upsample_contour(poly, contour_upsample)
+        spts, sw = polygon_lib.support_points(poly, grid=support_grid)
+        mass = SIM.density * area * OBJECT_2D.height
+        inertia = SIM.density * OBJECT_2D.height * i0
+        if triangulation == "uniform":
+            anchor = np.ones(1, np.float64)
+        else:
+            anchor = polygon_lib.earclip_anchor_weights(
+                poly, variant=triangulation)
+            if contour_upsample > 1:
+                k = contour_upsample
+                fr = np.arange(k, dtype=np.float64)[None, :] / k
+                nxt = np.roll(anchor, -1)
+                anchor = (anchor[:, None] * (1.0 - fr)
+                          + nxt[:, None] * fr).reshape(-1)[: len(poly_c)]
+        f32 = functools.partial(torch.as_tensor, dtype=torch.float32)
+        return Scene2D(
+            coef_l=f32(coef_l),
+            coef_r=f32(coef_r),
+            contour=f32(poly_c),
+            com=f32(com),
+            mass=f32(mass),
+            inertia=f32(inertia),
+            support_pts=f32(spts),
+            support_w=f32(sw),
+            finger_mass=f32(fmass),
+            anchor=f32(anchor),
+        )
 
 
 def pose_grid(

@@ -28,6 +28,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from dgdm_tpu_torch.core.config import SIM
+from dgdm_tpu_torch.core.profiling import TRACER
 from dgdm_tpu_torch.geom.fingers import (
     ctrlpts_2d,
     ctrlpts_3d,
@@ -53,10 +54,10 @@ class _Writer:
         self._lock = threading.Lock()
 
     def _write(self, path: str, rec: Dict) -> None:
-        t0 = time.perf_counter()
-        np.savez_compressed(path, rec)
+        with TRACER.span("pipeline.write") as span:
+            np.savez_compressed(path, rec)
         with self._lock:
-            self.seconds += time.perf_counter() - t0
+            self.seconds += span.seconds
 
     def submit(self, path: str, rec: Dict) -> None:
         while len(self.pending) >= self.QUEUE_CAP:
@@ -76,6 +77,8 @@ def _run_waves(items, bake, launch, drain, writer: _Writer, poses,
     """The loop both pipelines share: bake and launch wave i, then drain
     wave i-1. ``drain(item, records_res)`` returns the valid pair count.
 
+    The bake, drain and write seconds are the ``pipeline.bake``,
+    ``pipeline.drain`` and ``pipeline.write`` spans' (``core/profiling``).
     Besides the seconds, it counts the drains that ended while the next
     wave's kernel still ran (on the card each one should: a result copy
     queued behind the next kernel would make the drain wait for it), and
@@ -85,9 +88,9 @@ def _run_waves(items, bake, launch, drain, writer: _Writer, poses,
              "waves": 0, "pairs_valid": 0, "drains_under_kernel": 0}
 
     def finish(item, res, nxt):
-        t = time.perf_counter()
-        stats["pairs_valid"] += drain(item, res)
-        stats["wait_s"] += time.perf_counter() - t
+        with TRACER.span("pipeline.drain") as span:
+            stats["pairs_valid"] += drain(item, res)
+        stats["wait_s"] += span.seconds
         if nxt is not None:
             stats["drains_under_kernel"] += not datagen.kernel_done(nxt)
             stats["gap_s"] += datagen.gap_seconds(res, nxt)
@@ -96,10 +99,11 @@ def _run_waves(items, bake, launch, drain, writer: _Writer, poses,
     inflight = None
     try:
         for item in items:
-            t = time.perf_counter()
-            scenes = bake(item)   # overlaps the previous wave's kernel
-            stats["bake_s"] += time.perf_counter() - t
-            res = launch(scenes)
+            with TRACER.span("pipeline.bake") as span:
+                scenes = bake(item)   # overlaps the previous wave's kernel
+            stats["bake_s"] += span.seconds
+            with TRACER.span("pipeline.launch"):
+                res = launch(scenes)
             if inflight is not None:
                 finish(*inflight, res)
             inflight = (item, res)

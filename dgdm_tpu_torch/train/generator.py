@@ -27,6 +27,7 @@ from typing import Dict, Optional
 import torch
 
 from dgdm_tpu_torch.core.config import DIFFUSION
+from dgdm_tpu_torch.core.profiling import TRACER
 from dgdm_tpu_torch.diffusion import ddim
 from dgdm_tpu_torch.models.unet1d import ConditionalUnet1D
 from dgdm_tpu_torch.parallel.mesh import (
@@ -50,6 +51,7 @@ def _denoise(unet, x, num_train_timesteps, num_inference_steps, on_step):
         yield x
 
 
+@TRACER.traced("generator.sample")
 @torch.no_grad()
 def sample(
     unet: torch.nn.Module,

@@ -25,6 +25,12 @@ _PALLAS3D = "K2's launcher and its plain version"
 # (JAX module, name) -> (port module, name, why) where the counterpart has
 # another name or path; (None, None, why) where there is none
 COUNTERPARTS = {
+    ("core/profiling.py", "annotate"): (
+        "core/profiling.py", "TRACER",
+        "the program's named regions are the recorder's host spans"),
+    ("core/profiling.py", "trace"): (
+        "core/profiling.py", "TraceWindow",
+        "a bounded torch.profiler window over a loop's steps"),
     ("models/unet1d.py", "Downsample1d"): (
         "models/unet1d.py", "ConditionalUnet1D",
         "a plain strided nn.Conv1d inside the UNet"),

@@ -189,7 +189,7 @@ def test_trace_window(tmp_path):
     x = torch.ones(64, 64)
     for i in range(5):
         tw.step(i)
-        with tprof.annotate("matmul"):
+        with torch.profiler.record_function("matmul"):
             x = x @ x / 64
     tw.close()
     assert any(f.endswith(".json") for f in os.listdir(log_dir))
