@@ -126,7 +126,22 @@ def finger_cross_section_area(
     Slab spans share a boundary sample, so the sum over slabs deliberately
     over-counts exactly as MuJoCo does. Verified to machine precision against
     MjModel jaw masses; per-finger mass sets the kp=10 servo timing, which
-    controls where in the grip transient the 200-step profile snapshot lands."""
+    controls where in the grip transient the 200-step profile snapshot lands.
+
+    Computed by the port's C++ (``geom/jawmass.py``, the same double) where
+    the host has a C++ compiler, else by ``finger_cross_section_area_py``."""
+    from dgdm_tpu_torch.geom import jawmass
+
+    if jawmass.available():
+        return jawmass.jaw_area(y_curve, x_curve, width, num_slabs)
+    return finger_cross_section_area_py(y_curve, x_curve, width, num_slabs)
+
+
+def finger_cross_section_area_py(
+    y_curve: np.ndarray, x_curve: np.ndarray, width: float, num_slabs: int = 50
+) -> float:
+    """``finger_cross_section_area`` in Python and numpy: the fallback where
+    the host has no C++ compiler, and the oracle of the C++ path's tests."""
     pts = np.concatenate(
         [
             np.stack([x_curve, y_curve], -1),

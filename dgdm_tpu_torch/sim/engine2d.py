@@ -39,6 +39,7 @@ import torch
 from dgdm_tpu_torch.core.config import GRIPPER_2D, OBJECT_2D, SIM
 from dgdm_tpu_torch.core.profiling import TRACER
 from dgdm_tpu_torch.geom import contour as contour_lib
+from dgdm_tpu_torch.geom import jawmass
 from dgdm_tpu_torch.geom import polygon as polygon_lib
 from dgdm_tpu_torch.geom.spline import cubic_basis_matrix, cubic_coef_operator
 from dgdm_tpu_torch.sim.types import Scene2D, State2D
@@ -172,9 +173,22 @@ def upsample_contour(poly: np.ndarray, k: int) -> np.ndarray:
     return dense.reshape(-1, poly.shape[1])
 
 
-# Per-jaw host work: the cubic coefficient transform is cheap, but the exact
-# MuJoCo jaw mass (hull of the full strip + 50 overlapping slab hulls) costs
-# ~8 ms/jaw, so it is computed once per gripper and kept in an LRU.
+@functools.lru_cache(maxsize=None)
+def _finger_operators_2d():
+    """The jaw's coefficient operator, curve samples and curve basis (the
+    same for every design)."""
+    g = GRIPPER_2D
+    coef_op = cubic_coef_operator(g.num_ctrl, g.ctrl_x_min, g.ctrl_x_max)
+    x_curve = np.linspace(g.ctrl_x_min, g.ctrl_x_max, g.num_curve_points)
+    basis = cubic_basis_matrix(g.num_ctrl, g.ctrl_x_min, g.ctrl_x_max, x_curve)
+    return coef_op, x_curve, basis
+
+
+# Per-jaw host work: the cubic coefficient transform and the exact MuJoCo jaw
+# mass (hull of the full strip + 50 overlapping slab hulls; ~0.05 ms a jaw in
+# the port's C++, geom/jawmass.py, ~10 ms in the Python fallback, on one x86
+# core). An LRU keeps both per gripper: a hit (~1 us) is cheaper still, and 2D
+# datagen reuses grippers across objects.
 _FINGER_CACHE_2D: "dict[bytes, tuple]" = {}
 _FINGER_CACHE_2D_MAX = 4096
 
@@ -186,13 +200,13 @@ def _finger_host_work_2d(y: np.ndarray):
     if hit is not None:
         _FINGER_CACHE_2D[key] = hit     # pop+reinsert: true LRU, not FIFO
         return hit
-    coef_op = cubic_coef_operator(g.num_ctrl, g.ctrl_x_min, g.ctrl_x_max)
+    coef_op, x_curve, basis = _finger_operators_2d()
     coef = np.einsum("skn,n->sk", coef_op, y)
-    x_curve = np.linspace(g.ctrl_x_min, g.ctrl_x_max, g.num_curve_points)
-    basis = cubic_basis_matrix(g.num_ctrl, g.ctrl_x_min, g.ctrl_x_max, x_curve)
-    fmass = SIM.density * g.height * polygon_lib.finger_cross_section_area(
-        basis @ y, x_curve, g.width
-    )
+    path = "native" if jawmass.available() else "python"
+    with TRACER.span(f"scene.jaw_mass.{path}"):
+        area = polygon_lib.finger_cross_section_area(basis @ y, x_curve,
+                                                     g.width)
+    fmass = SIM.density * g.height * area
     if len(_FINGER_CACHE_2D) >= _FINGER_CACHE_2D_MAX:
         _FINGER_CACHE_2D.pop(next(iter(_FINGER_CACHE_2D)))
     out = (coef, float(fmass))
