@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from dgdm_tpu_torch.core.config import GRIPPER_2D, SIM
+from dgdm_tpu_torch.core.profiling import TRACER
 from dgdm_tpu_torch.core.transfer import Stamp, download_async, upload, wait
 from dgdm_tpu_torch.geom.fingers import ctrlpts_2d, sample_gripper_2d
 from dgdm_tpu_torch.geom.spline import cubic_basis_matrix
@@ -133,8 +134,10 @@ def profile_pairs_2d(
     """Run the full pose grid for a stacked scene batch on ``device``.
 
     Default path: the rollout kernel (its plain version for CPU tensors),
-    the pose batch padded to a multiple of 128. ``use_pallas=False``: the
-    pure engine, ``chunk`` poses a call (bounds the live intermediates).
+    the pose batch padded to a multiple of 128; the host arrays and their
+    pinned uploads are the ``datagen.arrays`` span. ``use_pallas=False``:
+    the pure engine, ``chunk`` poses a call (bounds the live
+    intermediates).
 
     Returns dict with delta_theta (B, N), delta_pos (B, N, 2), final_theta.
     With ``block=False`` it returns once the work is queued (CUDA launches
@@ -143,7 +146,8 @@ def profile_pairs_2d(
     docstring)."""
     mesh, scenes = dp_split(scenes)
     if use_pallas:
-        arrs = rollout2d.scene_arrays(scenes, calib=calib, device=device)
+        with TRACER.span("datagen.arrays"):
+            arrs = rollout2d.scene_arrays(scenes, calib=calib, device=device)
 
         def run(p):
             return rollout2d.profile_batch(*arrs, p)[:3]

@@ -134,7 +134,8 @@ def pipeline_2d(
     ``gripper_indices``; the same npz shards as ``datagen.generate_2d``.
 
     ``on_records(object_idx, records)`` (optional) receives each wave's
-    records as they materialize."""
+    records as they materialize. A drain's record assembly and write
+    submits are the ``datagen.records`` span."""
     poses = engine2d.pose_grid(grid_size=grid_size, num_pos=num_pos)
     obj_pos, theta0 = datagen.pose_fields(poses)
     # grippers are object-independent (seed-indexed): sample + ctrlpts once
@@ -159,13 +160,14 @@ def pipeline_2d(
         out = datagen.fetch_pairs_2d(res)
         obj = {"object_vertices": np.asarray(contour, np.float32)}
         records = []
-        for b, gi in enumerate(gripper_indices):
-            rec = datagen.make_record(ctrl[b], allp[b], obj, obj_pos, theta0,
-                                      out["delta_theta"][b],
-                                      out["delta_pos"][b])
-            records.append(rec)
-            if save_dir is not None:
-                writer.submit(datagen.shard_path(save_dir, oi, gi), rec)
+        with TRACER.span("datagen.records"):
+            for b, gi in enumerate(gripper_indices):
+                rec = datagen.make_record(ctrl[b], allp[b], obj, obj_pos,
+                                          theta0, out["delta_theta"][b],
+                                          out["delta_pos"][b])
+                records.append(rec)
+                if save_dir is not None:
+                    writer.submit(datagen.shard_path(save_dir, oi, gi), rec)
         if on_records is not None:
             on_records(oi, records)
         return len(records)
