@@ -10,8 +10,9 @@
 // point short), so a group is 128 * G threads in Layout<G>::kCluster blocks
 // (csrc/rollout_common.cuh). Every lane of a rollout holds the rollout's
 // state and runs the 5x5 / 3x3 Cholesky solves and the line search
-// redundantly; only the point sums cross lanes (float64 partial sums, an xor
-// butterfly of shuffles, one rounding to float32). The pair's finger
+// redundantly; only the point sums cross lanes (float64 partial sums added
+// over the xor butterfly's lane pairs by shuffles, one rounding to
+// float32). The pair's finger
 // coefficients, body-frame contour, support points and constants (~2.5 KB)
 // sit in each block's shared memory, and so do the quantities of a
 // rollout's step that stay fixed during its solve (struct Lane). The two
@@ -41,6 +42,28 @@
 // launcher refuses a contour that needs more shared memory than a block may
 // have (P > 384 on the H100; above ~170 points an SM holds one block, not
 // two). Nothing of a step touches device memory.
+//
+// The Newton body's point sums. Each pass reduces its float64 sums as one
+// vector (a reduce-scatter over the butterfly's lane pairs, so each total
+// keeps its bits; csrc/rollout_common.cuh) and broadcasts the totals as
+// float32 to every lane, which all run the Cholesky solve and the line
+// search. A lane's float64 exchanges, against one butterfly (4) a sum: in a
+// full-solve Newton iteration the contour pass's 23 sums (the grip load,
+// the 8 force and moment sums, 14 Hessian entries) 23 against 92
+// (rollout::group_sum_wide: a lane ends with two totals), the supports' 7
+// sums and their load total (added in the same loop) 8 against 32, the
+// line search's 6 energies 7 against 24: 38 against 148; in a cheap-solve
+// iteration the 7 support sums 8 and the 3 energies 5, against 40 (the
+// solve's fixed load total keeps its butterfly). SASS of this
+// instantiation: 157 SHFL against 384, 163 DADD against 304, 15
+// F2F.F32.F64 against 56, 108 F2F.F64.F32 against 112. Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W in one process against the body before
+// (one butterfly a sum; scripts/probe_kernel_ab.py): 102.8-103.8 against
+// 113.0-114.2 ms at 8 pairs x 9,088 poses x 200 steps, 324.6-339.6 against
+// 358.4-358.7 ms at 16 x 384 x 8,000, the outputs bitwise equal at 17, 100,
+// 272 and 384 points; 122 registers and 0 spills either way. Parking the
+// totals in the rollout's Lane slot and reading them back as float4 (124
+// registers) was 1-5% slower than the broadcast.
 //
 // Jacobi (Solver = kJacobi). Every normal step is a full solve (no cheap
 // path; the settled-travel gate, regrasp and snapshot are shared): the
@@ -292,49 +315,62 @@ __device__ __forceinline__ void support_geo(const Shared& sh, const Pair& pc,
 }
 
 // Plane friction sums of one Newton iteration at u: the force and moment,
-// and the Hessian terms. `load(k)` is support k's normal load n_i.
+// and the Hessian terms; with NI also the supports' total normal load (the
+// torsion cap's), added in the same loop. `load(k)` is support k's normal
+// load n_i. The sums reduce as one vector (rollout::group_sum_vec).
 struct SupSums {
-  float fx, fy, m, fac, f0, f1, f2;
+  float fx, fy, m, fac, f0, f1, f2, ni;
 };
 
-template <int G, class Load>
+template <int G, bool NI, class Load>
 __device__ __forceinline__ void support_sums(
     const Shared& sh, const Pair& pc, const Rollout2DParams& prm,
     const Lane& L, int S, int sub, const float* u, Load load, SupSums& o) {
-  double s_fx = 0.0, s_fy = 0.0, s_m = 0.0, s_fac = 0.0, s_f0 = 0.0,
-         s_f1 = 0.0, s_f2 = 0.0;
+  constexpr int N = NI ? 8 : 7;
+  double s[N];
+#pragma unroll
+  for (int q = 0; q < N; ++q) s[q] = 0.0;
   for (int k = sub; k < S; k += G) {
     Sup g;
     support_geo(sh, pc, L, k, g);
     const float rsx = g.rsx, rsy = g.rsy;
-    float cap_s = pc.mu_plane * load(k) * prm.dt;
+    const float n_i = load(k);
+    float cap_s = pc.mu_plane * n_i * prm.dt;
     float vsx = u[0] - u[2] * rsy;
     float vsy = u[1] + u[2] * rsx;
     float vs = sqrtf(vsx * vsx + vsy * vsy + 1e-16f);
     float fac = mn(g.w_s, cap_s / vs);
     float fx = fac * vsx, fy = fac * vsy;
-    s_fx = s_fx + (double)fx;
-    s_fy = s_fy + (double)fy;
-    s_m = s_m + (double)(rsx * fy - rsy * fx);
-    s_fac = s_fac + (double)fac;
-    s_f0 = s_f0 + (double)(fac * (-rsy));
-    s_f1 = s_f1 + (double)(fac * rsx);
-    s_f2 = s_f2 + (double)(fac * (rsx * rsx + rsy * rsy));
+    s[0] = s[0] + (double)fx;
+    s[1] = s[1] + (double)fy;
+    s[2] = s[2] + (double)(rsx * fy - rsy * fx);
+    s[3] = s[3] + (double)fac;
+    s[4] = s[4] + (double)(fac * (-rsy));
+    s[5] = s[5] + (double)(fac * rsx);
+    s[6] = s[6] + (double)(fac * (rsx * rsx + rsy * rsy));
+    if constexpr (NI) s[7] = s[7] + (double)n_i;
   }
-  o.fx = group_sum<G>(s_fx);
-  o.fy = group_sum<G>(s_fy);
-  o.m = group_sum<G>(s_m);
-  o.fac = group_sum<G>(s_fac);
-  o.f0 = group_sum<G>(s_f0);
-  o.f1 = group_sum<G>(s_f1);
-  o.f2 = group_sum<G>(s_f2);
+  float t[N];
+  rollout::group_sum_vec<G, N>(s, t);
+  o.fx = t[0];
+  o.fy = t[1];
+  o.m = t[2];
+  o.fac = t[3];
+  o.f0 = t[4];
+  o.f1 = t[5];
+  o.f2 = t[6];
+  o.ni = NI ? t[N - 1] : 0.0f;
 }
 
 // Coupled semi-smooth Newton on the 5-DOF soft-constraint energy
 // (pallas2d.py:359-506): u = (vx, vy, om, qdl, qdr), in/out. Lane `sub` of
 // the rollout's G lanes takes the points sub, sub + G, ... The lane's
 // geometry is computed once, ahead of the Newton iterations, into `slab`
-// (the thread's column), and the passes read it back.
+// (the thread's column), and the passes read it back. Each pass reduces its
+// sums as one vector (the contour pass's 23 by rollout::group_sum_wide, the
+// supports' 8 and the line search's 6 by rollout::group_sum_vec), and every
+// lane receives every total: the Cholesky solve and the line search run on
+// all of them.
 template <int G>
 __device__ __forceinline__ void full_solve(
     const Shared& sh, const Pair& pc, const Rollout2DParams& prm,
@@ -353,14 +389,11 @@ __device__ __forceinline__ void full_solve(
     float lam_s, lnx, ftx, lny, fty, lrxn, ftrxt, g3, g4;
     float H[5][5];
     {
-      double s_lam = 0.0;
-      double s_lnx = 0.0, s_ftx = 0.0, s_lny = 0.0, s_fty = 0.0;
-      double s_lrxn = 0.0, s_ftrxt = 0.0, s_g3 = 0.0, s_g4 = 0.0;
-      double Hs[5][5];
+      // the grip load, the eight force and moment sums, then the Hessian's
+      // upper triangle by rows without (3, 4)
+      double s[23];
 #pragma unroll
-      for (int a = 0; a < 5; ++a)
-#pragma unroll
-        for (int b = 0; b < 5; ++b) Hs[a][b] = 0.0;
+      for (int q = 0; q < 23; ++q) s[q] = 0.0;
       for (int p = sub, k = 0; p < P; p += G, ++k) {
         Geo g;
         geo_load<kThreads>(slab, k, g);
@@ -368,21 +401,22 @@ __device__ __forceinline__ void full_solve(
         point_vel(g, u, vn, vt);
         float res = mx(g.tgt_n - vn, 0.0f);
         float lam = g.w_nn * res;
-        s_lam = s_lam + (double)lam;
+        s[0] = s[0] + (double)lam;
         float cap_t = pc.mu_finger * lam + g.cap_rough;
         float f_t = clampf(g.w_tt * vt, -cap_t, cap_t);
-        s_lnx = s_lnx + (double)(lam * g.nx);
-        s_ftx = s_ftx + (double)(f_t * g.tx);
-        s_lny = s_lny + (double)(lam * g.ny);
-        s_fty = s_fty + (double)(f_t * g.ty);
-        s_lrxn = s_lrxn + (double)(lam * g.rxn);
-        s_ftrxt = s_ftrxt + (double)(f_t * g.rxt);
-        s_g3 = s_g3 + (double)(g.sl * (lam * g.ny - f_t * g.ty));
-        s_g4 = s_g4 + (double)(g.sr * (lam * g.ny - f_t * g.ty));
+        s[1] = s[1] + (double)(lam * g.nx);
+        s[2] = s[2] + (double)(f_t * g.tx);
+        s[3] = s[3] + (double)(lam * g.ny);
+        s[4] = s[4] + (double)(f_t * g.ty);
+        s[5] = s[5] + (double)(lam * g.rxn);
+        s[6] = s[6] + (double)(f_t * g.rxt);
+        s[7] = s[7] + (double)(g.sl * (lam * g.ny - f_t * g.ty));
+        s[8] = s[8] + (double)(g.sr * (lam * g.ny - f_t * g.ty));
         float on_n = g.w_nn * ((res > 0.0f) ? 1.0f : 0.0f);
         float on_t = g.w_tt * ((fabsf(g.w_tt * vt) <= cap_t) ? 1.0f : 0.0f);
         float jn[5] = {g.nx, g.ny, g.rxn, -g.ny * g.sl, -g.ny * g.sr};
         float jt[5] = {g.tx, g.ty, g.rxt, -g.ty * g.sl, -g.ty * g.sr};
+        int q = 9;
 #pragma unroll
         for (int a = 0; a < 5; ++a) {
           float yn = on_n * jn[a];
@@ -390,35 +424,37 @@ __device__ __forceinline__ void full_solve(
 #pragma unroll
           for (int b = a; b < 5; ++b) {
             if (a == 3 && b == 4) continue;
-            Hs[a][b] = Hs[a][b] + (double)(yn * jn[b] + yt * jt[b]);
+            s[q] = s[q] + (double)(yn * jn[b] + yt * jt[b]);
+            ++q;
           }
         }
       }
-      lam_s = group_sum<G>(s_lam);
-      lnx = group_sum<G>(s_lnx);
-      ftx = group_sum<G>(s_ftx);
-      lny = group_sum<G>(s_lny);
-      fty = group_sum<G>(s_fty);
-      lrxn = group_sum<G>(s_lrxn);
-      ftrxt = group_sum<G>(s_ftrxt);
-      g3 = group_sum<G>(s_g3);
-      g4 = group_sum<G>(s_g4);
+      float t[23];
+      rollout::group_sum_wide<G, 23>(s, t);
+      lam_s = t[0];
+      lnx = t[1];
+      ftx = t[2];
+      lny = t[3];
+      fty = t[4];
+      lrxn = t[5];
+      ftrxt = t[6];
+      g3 = t[7];
+      g4 = t[8];
+      int q = 9;
 #pragma unroll
       for (int a = 0; a < 5; ++a)
 #pragma unroll
         for (int b = a; b < 5; ++b)
-          H[a][b] = (a == 3 && b == 4) ? 0.0f : group_sum<G>(Hs[a][b]);
+          H[a][b] = (a == 3 && b == 4) ? 0.0f : t[q++];
     }
     float grip = lam_s / pc.mg_dt;
     // ---- pass over plane supports: n_i, torsion cap, friction terms ----
     auto load = [&](int k) {
       return sh.sw[k] * n_total / (1.0f + pc.unload * grip);
     };
-    double s_ni = 0.0;
-    for (int k = sub; k < S; k += G) s_ni = s_ni + (double)load(k);
-    float cap_w = pc.mu_torsion * group_sum<G>(s_ni) * prm.dt;
     SupSums ss;
-    support_sums<G>(sh, pc, prm, L, S, sub, u, load, ss);
+    support_sums<G, true>(sh, pc, prm, L, S, sub, u, load, ss);
+    float cap_w = pc.mu_torsion * ss.ni * prm.dt;
     float f_w = clampf(w_w * u[2], -cap_w, cap_w);
     float grad[5];
     grad[0] = pc.mass * (u[0] - uu[0]) - lnx + ftx + ss.fx;
@@ -444,8 +480,11 @@ __device__ __forceinline__ void full_solve(
       u2[a] = u[a] + 0.5f * dv[a];
     }
 
-    // ---- line search {1, 0.5}: energies of u, u1, u2 ----
-    double en0 = 0.0, en1 = 0.0, en2 = 0.0;
+    // ---- line search {1, 0.5}: energies of u, u1, u2 (contour points,
+    // then supports) ----
+    double en[6];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) en[q] = 0.0;
     for (int p = sub, k = 0; p < P; p += G, ++k) {
       Geo g;
       geo_load<kThreads>(slab, k, g);
@@ -453,33 +492,37 @@ __device__ __forceinline__ void full_solve(
       point_vel(g, u, vn, vt);
       float res = mx(g.tgt_n - vn, 0.0f);
       float cap_t = pc.mu_finger * (g.w_nn * res) + g.cap_rough;
-      en0 = en0 + (double)(0.5f * g.w_nn * res * res + hub(vt, g.w_tt, cap_t));
+      en[0] = en[0]
+          + (double)(0.5f * g.w_nn * res * res + hub(vt, g.w_tt, cap_t));
       point_vel(g, u1, vn, vt);
       res = mx(g.tgt_n - vn, 0.0f);
-      en1 = en1 + (double)(0.5f * g.w_nn * res * res + hub(vt, g.w_tt, cap_t));
+      en[1] = en[1]
+          + (double)(0.5f * g.w_nn * res * res + hub(vt, g.w_tt, cap_t));
       point_vel(g, u2, vn, vt);
       res = mx(g.tgt_n - vn, 0.0f);
-      en2 = en2 + (double)(0.5f * g.w_nn * res * res + hub(vt, g.w_tt, cap_t));
+      en[2] = en[2]
+          + (double)(0.5f * g.w_nn * res * res + hub(vt, g.w_tt, cap_t));
     }
-    double es0 = 0.0, es1 = 0.0, es2 = 0.0;
     for (int k = sub; k < S; k += G) {
       Sup g;
       support_geo(sh, pc, L, k, g);
       const float rsx = g.rsx, rsy = g.rsy, w_s = g.w_s;
       float cap_s = pc.mu_plane * load(k) * prm.dt;
       float vsx = u[0] - u[2] * rsy, vsy = u[1] + u[2] * rsx;
-      es0 = es0 + (double)hub(sqrtf(vsx * vsx + vsy * vsy + 1e-16f), w_s, cap_s);
+      en[3] = en[3]
+          + (double)hub(sqrtf(vsx * vsx + vsy * vsy + 1e-16f), w_s, cap_s);
       vsx = u1[0] - u1[2] * rsy; vsy = u1[1] + u1[2] * rsx;
-      es1 = es1 + (double)hub(sqrtf(vsx * vsx + vsy * vsy + 1e-16f), w_s, cap_s);
+      en[4] = en[4]
+          + (double)hub(sqrtf(vsx * vsx + vsy * vsy + 1e-16f), w_s, cap_s);
       vsx = u2[0] - u2[2] * rsy; vsy = u2[1] + u2[2] * rsx;
-      es2 = es2 + (double)hub(sqrtf(vsx * vsx + vsy * vsy + 1e-16f), w_s, cap_s);
+      en[5] = en[5]
+          + (double)hub(sqrtf(vsx * vsx + vsy * vsy + 1e-16f), w_s, cap_s);
     }
-    float e0 = e_unc(pc, u, uu) + group_sum<G>(en0) + group_sum<G>(es0)
-        + hub(u[2], w_w, cap_w);
-    float e1 = e_unc(pc, u1, uu) + group_sum<G>(en1) + group_sum<G>(es1)
-        + hub(u1[2], w_w, cap_w);
-    float e2 = e_unc(pc, u2, uu) + group_sum<G>(en2) + group_sum<G>(es2)
-        + hub(u2[2], w_w, cap_w);
+    float et[6];
+    rollout::group_sum_vec<G, 6>(en, et);
+    float e0 = e_unc(pc, u, uu) + et[0] + et[3] + hub(u[2], w_w, cap_w);
+    float e1 = e_unc(pc, u1, uu) + et[1] + et[4] + hub(u1[2], w_w, cap_w);
+    float e2 = e_unc(pc, u2, uu) + et[2] + et[5] + hub(u2[2], w_w, cap_w);
     bool best12 = e1 <= e2;
     float eb = best12 ? e1 : e2;
     bool take_new = eb <= e0;
@@ -490,7 +533,9 @@ __device__ __forceinline__ void full_solve(
 }
 
 // No finger contact reachable in the group: plane friction + torsion only,
-// 2 Newton iterations on the 3-DOF subproblem (pallas2d.py:508-580).
+// 2 Newton iterations on the 3-DOF subproblem (pallas2d.py:508-580). The
+// load total, fixed for the solve, keeps the butterfly; an iteration's
+// support sums and its three energies reduce as one vector each.
 template <int G>
 __device__ __forceinline__ void cheap_solve(
     const Shared& sh, const Pair& pc, const Rollout2DParams& prm,
@@ -504,7 +549,7 @@ __device__ __forceinline__ void cheap_solve(
   float cap_w = pc.mu_torsion * group_sum<G>(s_ni) * prm.dt;
   for (int it = 0; it < 2; ++it) {
     SupSums ss;
-    support_sums<G>(sh, pc, prm, L, S, sub, u, load, ss);
+    support_sums<G, false>(sh, pc, prm, L, S, sub, u, load, ss);
     float f_w = clampf(w_w * u[2], -cap_w, cap_w);
     float g0 = pc.mass * (u[0] - uu[0]) + ss.fx;
     float g1 = pc.mass * (u[1] - uu[1]) + ss.fy;
@@ -545,6 +590,8 @@ __device__ __forceinline__ void cheap_solve(
         es[q] = es[q] + (double)((w_s * vs <= cap_s) ? qq : lin);
       }
     }
+    float est[3];
+    rollout::group_sum_vec<G, 3>(es, est);
     float e[3];
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
@@ -552,7 +599,7 @@ __device__ __forceinline__ void cheap_solve(
       float av = fabsf(v[2]);
       float qw = 0.5f * w_w * v[2] * v[2];
       float linw = cap_w * av - 0.5f * cap_w * cap_w / mx(w_w, 1e-12f);
-      float ec = group_sum<G>(es[q]) + ((w_w * av <= cap_w) ? qw : linw);
+      float ec = est[q] + ((w_w * av <= cap_w) ? qw : linw);
       float d0_ = v[0] - uu[0], d1_ = v[1] - uu[1], d2_ = v[2] - uu[2];
       e[q] = ec + 0.5f * (pc.mass * (d0_ * d0_ + d1_ * d1_)
                           + pc.inertia * (d2_ * d2_));

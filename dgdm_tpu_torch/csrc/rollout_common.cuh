@@ -23,7 +23,9 @@
 // (group_sum_vec), or is stored to shared memory by that lane alone
 // (group_sum_park). For 8 values over 32 lanes that is 9 float64 exchanges
 // and 8 float32 ones, where 8 butterflies take 40 float64 exchanges; for 26
-// values 27 float64 exchanges, where 26 butterflies take 130.
+// values 27 float64 exchanges, where 26 butterflies take 130. With more
+// values than lanes a lane ends with several totals (group_sum_wide): 23
+// values over 16 lanes take 23 exchanges, where 23 butterflies take 92.
 //
 // Group votes. GroupVote ORs one or two bits over all 128 * G threads of a
 // pose group: __syncthreads_or inside each block, then threads
@@ -197,6 +199,56 @@ __device__ __forceinline__ float group_sum_park(double (&v)[N], float* dst) {
   const int q = detail::vec_slot<G / 2, N, N>(lane);
   if (q >= 0) dst[q] = t;
   return t;
+}
+
+namespace detail {
+
+// The number of values a lane holds after the last stride of the
+// reduce-scatter of C values from stride M (padding included): 1 for
+// C <= 2M, ceil(C / 2M) beyond.
+template <int M, int C>
+__host__ __device__ constexpr int vec_held() {
+  if constexpr (M == 0 || C == 1) {
+    return C;
+  } else {
+    return vec_held<M / 2, (C + 1) / 2>();
+  }
+}
+
+// The index, among the vec_held values of its owner lane (vec_owner), at
+// which value q of C held at stride M ends.
+template <int M, int C>
+__host__ __device__ constexpr int vec_index(int q) {
+  if constexpr (M == 0) {
+    return q;
+  } else if constexpr (C == 1) {
+    return 0;
+  } else {
+    constexpr int H = (C + 1) / 2;
+    return vec_index<M / 2, H>(q < H ? q : q - H);
+  }
+}
+
+}  // namespace detail
+
+// group_sum_vec for any N, more values than lanes included (K1 Newton's 23
+// contour-pass sums at G = 16): the same reduce-scatter, after which a lane
+// holds detail::vec_held values; each rounds once to float32 on its lane,
+// and total q is broadcast from lane detail::vec_owner's value
+// detail::vec_index. Bitwise the N group_sum calls; for N <= G it is
+// group_sum_vec. v is consumed.
+template <int G, int N>
+__device__ __forceinline__ void group_sum_wide(double (&v)[N],
+                                               float (&out)[N]) {
+  detail::vec_stride<G / 2, N, N>(v, lane_in_rollout<G>());
+  constexpr int K = detail::vec_held<G / 2, N>();
+  float t[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) t[k] = (float)v[k];
+#pragma unroll
+  for (int q = 0; q < N; ++q)
+    out[q] = __shfl_sync(0xffffffffu, t[detail::vec_index<G / 2, N>(q)],
+                         detail::vec_owner<G / 2, N>(q), G);
 }
 
 // NaN-propagating min / max over the G lanes (exact under any order).

@@ -11,16 +11,24 @@ one process on one card.
 ``k2_newton`` (``rollout3d_kernel<32, 0>`` of csrc/rollout3d.cu),
 ``k2_newton_tol`` (``<32, 2>``, ``newton_iters`` 6, ``newton_tol`` 1e-4),
 ``k2_jacobi`` (``<32, 1>``), ``k1_jacobi`` (``rollout2d_kernel<16, 1>``
-of csrc/rollout2d.cu) or ``k1_newton`` (``<16, 0>``). Both checkouts' sources are built with the port's
-nvcc flags, and each instantiation's registers and spill bytes are read
-from ``ptxas -v`` (``chip_smoke.ptxas_report``). For each kernel the two
+of csrc/rollout2d.cu) or ``k1_newton`` (``<16, 0>``). Both checkouts'
+sources are built with the port's nvcc flags, and each instantiation's
+registers and spill bytes are read from ``ptxas -v``
+(``chip_smoke.ptxas_report``); ``cuobjdump -sass`` of each built library
+gives every instantiation's count of SASS instructions, of shuffles
+(``SHFL``), conversions to and from float64 (``F2F.F64.F32``,
+``F2F.F32.F64``) and float64 adds (``DADD``), and whether its instructions
+and encodings equal the other build's (equal code is a finding, unequal
+code not one by itself: ptxas has given K2's Newton instantiations other
+code from the same source in a second build). For each kernel the two
 builds are held bitwise equal on every output plane at the point counts of
 its card tests (K2: the kernel's golden fixture's pairs and poses with
 their first 256, 200 and 17 points, 800 steps; K1: its fixture's with the
-contour repeated to 100, 272 and 17 points and 64 or 7 supports,
-200 steps), then timed in the order other, this, this, other (CUDA events,
-one call each, the outputs held bitwise equal) at chip_smoke.py's shapes,
-built by ``chip_smoke.k2_inputs`` and ``chip_smoke.k1_inputs``:
+contour repeated to 100, 272 and 17 points, and for ``k1_newton`` to 384,
+the most its slab takes, with 64 or 7 supports, 200 steps), then timed in
+the order other, this, this, other (CUDA events, one call each, the outputs
+held bitwise equal) at chip_smoke.py's shapes, built by
+``chip_smoke.k2_inputs`` and ``chip_smoke.k1_inputs``:
 
 - K2 datagen: grippers 0-7 x mug_small x the 9,088-pose grid x 800 steps
   (``k2_newton``, ``k2_jacobi``; ``k2_newton_tol`` with its adaptive loop
@@ -41,6 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -55,7 +64,7 @@ import chip_smoke  # noqa: E402
 from dgdm_tpu_torch.core.config import SIM  # noqa: E402
 from dgdm_tpu_torch.sim import (engine2d, engine3d, rollout2d,  # noqa: E402
                                 rollout3d)
-from dgdm_tpu_torch.sim.cuda_lib import CudaLibrary  # noqa: E402
+from dgdm_tpu_torch.sim.cuda_lib import CudaLibrary, nvcc  # noqa: E402
 
 # kernel -> (module, solver, keyword arguments, ptxas entry tag, golden)
 KERNELS = {
@@ -79,6 +88,43 @@ def library(mod, checkout: str) -> CudaLibrary:
     lib.src = os.path.join(checkout, "dgdm_tpu_torch", "csrc", src)
     lib.name = f"{mod.LIBRARY.name}_other"
     return lib
+
+
+SASS_OPS = ("SHFL", "F2F.F64.F32", "F2F.F32.F64", "DADD")
+
+
+def sass(so: str) -> dict:
+    """Each entry function of the library ``so``, by its mangled name
+    without the anonymous namespace -> (its SASS instructions with their
+    encodings, by ``cuobjdump -sass``; the count of each of SASS_OPS among
+    their opcodes)."""
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    ins = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;"
+                     r"\s*/\*\s*(0x[0-9a-f]+)")
+    enc = re.compile(r"^\s*/\*\s*(0x[0-9a-f]+)\s*\*/\s*$")
+    funcs: dict = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            # the anonymous namespace's name differs from build to build
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d+", "",
+                          m.group(1))
+            cur = funcs.setdefault(name, [])
+        elif cur is not None and (m := ins.match(line)):
+            cur.append(f"{m.group(1)} {m.group(2)}")
+        elif cur is not None and cur and (m := enc.match(line)):
+            cur[-1] += f" {m.group(1)}"
+    out = {}
+    for name, lines in funcs.items():
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", x).split()[0] for x in lines]
+        count = {"instructions": len(ops)}
+        for op in SASS_OPS:
+            count[op] = sum(o == op or o.startswith(op + ".") for o in ops)
+        out[name] = (lines, count)
+    return out
 
 
 def same(x, y) -> list:
@@ -115,6 +161,15 @@ def main(argv=None) -> int:
                 "seconds": time.perf_counter() - t0,
                 "ptxas": {e: list(v) for e, v in regs.items()}}
             lib.get()
+        # SASS instruction counts, and whether each entry's code is the
+        # other build's
+        code = {w: sass(lib.path()) for w, lib in libs[mod].items()}
+        for entry, (lines, count) in sorted(code["this"].items()):
+            other = code["other"].get(entry)
+            row = {"this": count, "other": other and other[1],
+                   "same_code": other is not None and other[0] == lines}
+            res.setdefault("sass", {})[entry] = row
+            print(f"  sass {entry}: {row}", flush=True)
 
     def run(mod, which, *a, **kw):
         mod.LIBRARY = libs[mod][which]
@@ -164,11 +219,13 @@ def main(argv=None) -> int:
             coefs, contour, sup, scal = (
                 torch.as_tensor(z[k], device=dev)
                 for k in ("coefs", "contour", "support", "scalars"))
-            rep = contour.repeat(1, 3, 1)
+            rep = contour.repeat(1, 4, 1)
+            counts = (100, 272, 384, 17) if solver == "newton" else (
+                100, 272, 17)
             cases = {f"P={p},S={s}": ((coefs, rep[:, :p].contiguous(),
                                        sup[:, :s].contiguous(), scal),
                                       (200, 0, 0))
-                     for p in (100, 272, 17) for s in (64, 7)}
+                     for p in counts for s in (64, 7)}
         for case, (arrs, sched) in cases.items():
             o_this, _ = run(mod, "this", *arrs, gposes, *sched, solver=solver,
                             **kw)

@@ -1,7 +1,8 @@
-"""The vector point sums of the CUDA kernels (``group_sum_vec`` and
-``group_sum_park`` in dgdm_tpu_torch/csrc/rollout_common.cuh, used by K2's
-Newton and Jacobi passes and K1's Jacobi passes) against the order of the
-plain rollout versions (dgdm_tpu_torch/sim/point_sum.py).
+"""The vector point sums of the CUDA kernels (``group_sum_vec``,
+``group_sum_park`` and ``group_sum_wide`` in
+dgdm_tpu_torch/csrc/rollout_common.cuh, used by K2's Newton and Jacobi
+passes and K1's Newton and Jacobi passes) against the order of the plain
+rollout versions (dgdm_tpu_torch/sim/point_sum.py).
 
 A numpy emulation of the helpers over the G lanes of a rollout (G = 32 for
 K2, 16 for K1): lane r adds the points r, r + G, ... in increasing p onto
@@ -13,14 +14,19 @@ keeps; a lane holding one value adds its partner's, as ``group_sum``'s
 butterfly does. Each total rounds once to float32 on the lane where it
 ended: ``group_sum_vec`` broadcasts it, ``group_sum_park`` has the owner
 lane (``detail::vec_owner``, found by its inverse ``detail::vec_slot``)
-store it. Bitwise equality with ``point_sum64(..., group=G)`` is asserted
+store it; with more values than lanes a lane ends with several
+(``detail::vec_held``), and ``group_sum_wide`` broadcasts total q from its
+owner's value ``detail::vec_index``. Bitwise equality with
+``point_sum64(..., group=G)`` is asserted
 (tolerance 0) on float32 terms spanning 1e-8 to 1e8 with cancelling signs,
 where float64 addition is inexact and the order decides the bits: at G = 32
 for 6, 8 and 10 values (K2 Jacobi's plane sweep, finger sweep and pass A)
 and 25, 26 and 27 (K2 Newton's passes C, A and B, and the cheap solve's
 iteration); at G = 16 for 3, 5 and 6 (K1 Jacobi's planar sweep, contour
-sweep and passes A and C). No JAX counterpart: the Pallas kernels sum in
-float32."""
+sweep and passes A and C; K1 Newton's cheap-solve energies and line
+search), 7 and 8 (K1 Newton's cheap-solve and full-solve support sums) and
+23 (K1 Newton's contour pass, ``group_sum_wide``). No JAX counterpart: the
+Pallas kernels sum in float32."""
 
 import numpy as np
 import pytest
@@ -61,6 +67,23 @@ def _vec_owner(m, c, q):
             else m + _vec_owner(m // 2, h, q - h))
 
 
+def _vec_held(m, c):
+    """``detail::vec_held<M, C>()``: the values a lane holds at the end."""
+    if m == 0 or c == 1:
+        return c
+    return _vec_held(m // 2, (c + 1) // 2)
+
+
+def _vec_index(m, c, q):
+    """``detail::vec_index<M, C>(q)``: the index of value q among them."""
+    if m == 0:
+        return q
+    if c == 1:
+        return 0
+    h = (c + 1) // 2
+    return _vec_index(m // 2, h, q if q < h else q - h)
+
+
 def _vec_slot(m, c, r, lane):
     """``detail::vec_slot<M, C, R>(lane)``: the value whose owner is
     ``lane``, or -1."""
@@ -80,7 +103,7 @@ def _vec_slot(m, c, r, lane):
 def _group_sum_vec(partials, g=G, final=None):
     """-> (per-value float64 total as held by its owner lane, float32 value
     every lane receives, float64 exchanges per lane); with ``final`` a
-    list, it receives each lane's float64 value after the last stride."""
+    list, it receives each lane's float64 values after the last stride."""
     n = partials.shape[1]
     held = [[np.float64(v) for v in partials[r]] for r in range(g)]
     c, m, exchanges = n, g // 2, 0
@@ -113,13 +136,15 @@ def _group_sum_vec(partials, g=G, final=None):
                     local[q] -= h
             c = h
         m //= 2
-    assert all(i == 0 for i in local)
+    assert all(len(h) == _vec_held(g // 2, n) for h in held)
+    assert local == [_vec_index(g // 2, n, q) for q in range(n)]
     assert owners == [_vec_owner(g // 2, n, q) for q in range(n)]
     if final is not None:
-        final.extend(h[0] for h in held)
-    tot64 = np.array([held[owners[q]][0] for q in range(n)])
+        final.extend(held)
+    tot64 = np.array([held[owners[q]][local[q]] for q in range(n)])
     # every lane receives the owner's rounding (a float32 broadcast)
-    recv = np.array([np.float32(held[owners[q]][0]) for q in range(n)])
+    recv = np.array([np.float32(held[owners[q]][local[q]])
+                     for q in range(n)])
     return tot64, recv, exchanges
 
 
@@ -148,15 +173,21 @@ def test_group_sum_vec_matches_point_sum64(n, exchanges, p):
     (16, 3, 100, 5), (16, 3, 272, 5), (16, 3, 17, 5),
     (16, 5, 100, 7), (16, 5, 272, 7), (16, 5, 17, 7),
     (16, 6, 100, 7), (16, 6, 272, 7), (16, 6, 17, 7),
+    (16, 23, 100, 23), (16, 23, 384, 23), (16, 23, 17, 23),
+    (16, 8, 64, 8), (16, 8, 7, 8), (16, 8, 17, 8),
+    (16, 7, 64, 8), (16, 7, 7, 8), (16, 7, 17, 8),
 ])
 def test_group_sum_vec_and_park_match_point_sum64(g, n, p, exchanges):
-    """Both helpers at the kernels' vector widths and point counts (K2:
-    256, 200 and 17 points; K1 Jacobi: 100, 272 and 17 contour points):
-    every total bitwise ``point_sum64(..., group=g)``'s, on every lane
-    (``group_sum_vec``) and parked by exactly one lane, the one that
-    ``vec_owner`` names (``group_sum_park``), in the float64 exchanges a
-    lane makes (27 for K2 Newton's 26 sums, where 26 butterflies take 130;
-    7 for K1's 5 contour-sweep sums at G = 16, where 5 take 20)."""
+    """The helpers at the kernels' vector widths and point counts (K2:
+    256, 200 and 17 points; K1: 100, 272 (Jacobi's limit at 64 supports),
+    384 (Newton's) and 17 contour points, 64, 7 and 17 supports): every
+    total bitwise ``point_sum64(..., group=g)``'s, on every lane
+    (``group_sum_vec``; ``group_sum_wide`` where n > g) and, where n <= g,
+    parked by exactly one lane, the one that ``vec_owner`` names
+    (``group_sum_park``), in the float64 exchanges a lane makes (27 for K2
+    Newton's 26 sums, where 26 butterflies take 130; at G = 16, 7 for K1
+    Jacobi's 5 contour-sweep sums, where 5 take 20, and 23 for K1 Newton's
+    23 contour-pass sums, where 23 take 92)."""
     x = _terms(p, n, seed=1000 * g + 10 * n + p)
     final = []
     tot64, recv, used = _group_sum_vec(_lane_partials(x, g), g, final)
@@ -164,15 +195,22 @@ def test_group_sum_vec_and_park_match_point_sum64(g, n, p, exchanges):
     np.testing.assert_array_equal(tot64, want)
     np.testing.assert_array_equal(recv, want.astype(np.float32))
     assert used == exchanges
-    # group_sum_park: lane r stores its rounded value to dst[vec_slot(r)]
-    dst = np.full(n, np.nan, np.float32)
-    slots = [_vec_slot(g // 2, n, n, r) for r in range(g)]
-    for r, q in enumerate(slots):
-        if q >= 0:
-            assert np.isnan(dst[q]), f"value {q} stored twice"
-            assert r == _vec_owner(g // 2, n, q)
-            dst[q] = np.float32(final[r])
-    assert sorted(q for q in slots if q >= 0) == list(range(n))
-    np.testing.assert_array_equal(dst, want.astype(np.float32))
+    # each total ends in one (lane, index) of its own
+    ends = {(_vec_owner(g // 2, n, q), _vec_index(g // 2, n, q))
+            for q in range(n)}
+    assert len(ends) == n
+    assert (_vec_held(g // 2, n) > 1) == (n > g)
+    if n <= g:
+        # group_sum_park: lane r stores its rounded value to
+        # dst[vec_slot(r)]
+        dst = np.full(n, np.nan, np.float32)
+        slots = [_vec_slot(g // 2, n, n, r) for r in range(g)]
+        for r, q in enumerate(slots):
+            if q >= 0:
+                assert np.isnan(dst[q]), f"value {q} stored twice"
+                assert r == _vec_owner(g // 2, n, q)
+                dst[q] = np.float32(final[r][0])
+        assert sorted(q for q in slots if q >= 0) == list(range(n))
+        np.testing.assert_array_equal(dst, want.astype(np.float32))
     seq = point_sum64(torch.from_numpy(x), 0, 1).numpy()
     assert not np.array_equal(seq, want)
