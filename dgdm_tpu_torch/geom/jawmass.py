@@ -5,7 +5,7 @@ same double (the source says how). No JAX counterpart: the JAX package
 computes the mass in Python.
 
 The library is built on first use by the host's C++ compiler with
-``sim/cuda_lib.CXX_FLAGS`` into ``dgdm_tpu_torch/_build/`` (named by a hash
+``core/native.CXX_FLAGS`` into ``dgdm_tpu_torch/_build/`` (named by a hash
 of the source and the flags) and bound with ctypes. ``available()`` is False
 only where the host has no C++ compiler; then ``finger_cross_section_area``
 takes its Python body. A failed compile raises, so a broken source never
@@ -19,7 +19,7 @@ import functools
 
 import numpy as np
 
-from dgdm_tpu_torch.sim import cuda_lib
+from dgdm_tpu_torch.core import native
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -28,14 +28,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.jaw_area.argtypes = [ptr, ptr, ptr, i64, ptr, i64]
 
 
-LIBRARY = cuda_lib.HostLibrary("jawmass.cpp", _bind)
+LIBRARY = native.NativeLibrary("jawmass.cpp", _bind, **native.CXX)
 
 
 @functools.lru_cache(maxsize=None)
 def available() -> bool:
     """Whether the native jaw mass runs here: builds (or finds) and loads
     the library on the first call; raises if the compiler refuses it."""
-    if cuda_lib.cxx() is None:
+    if native.cxx() is None:
         return False
     LIBRARY.get()
     return True

@@ -161,140 +161,3 @@ def finger_cross_section_area_py(
         )
         area += polygon_area_centroid_inertia(convex_hull(p))[0]
     return float(area)
-
-
-def ear_clip(verts: np.ndarray) -> np.ndarray:
-    """Ear-clipping triangulation of a simple CCW polygon. Host-side only
-    (used to build oracle collision meshes). Returns (T, 3) vertex indices.
-
-    Uses the native geomkit kernel when available (~100x the Python loop),
-    falling back to the pure-Python implementation below."""
-    from dgdm_tpu_torch.geom import native
-
-    nat = native.ear_clip(np.asarray(verts, dtype=np.float64))
-    if nat is not None and len(nat) == len(verts) - 2:
-        return nat
-    n = len(verts)
-    idx = list(range(n))
-    tris = []
-
-    def cross(o, a, b):
-        return (a[0] - o[0]) * (b[1] - o[1]) - (a[1] - o[1]) * (b[0] - o[0])
-
-    guard = 0
-    while len(idx) > 3 and guard < 10 * n * n:
-        guard += 1
-        m = len(idx)
-        clipped = False
-        for k in range(m):
-            i0, i1, i2 = idx[(k - 1) % m], idx[k], idx[(k + 1) % m]
-            a, b, c = verts[i0], verts[i1], verts[i2]
-            if cross(a, b, c) <= 1e-16:
-                continue  # reflex or degenerate
-            # no other polygon vertex inside the candidate ear
-            others = [j for j in idx if j not in (i0, i1, i2)]
-            if others:
-                p = verts[others]
-                s0 = (b[0] - a[0]) * (p[:, 1] - a[1]) - (b[1] - a[1]) * (p[:, 0] - a[0])
-                s1 = (c[0] - b[0]) * (p[:, 1] - b[1]) - (c[1] - b[1]) * (p[:, 0] - b[0])
-                s2 = (a[0] - c[0]) * (p[:, 1] - c[1]) - (a[1] - c[1]) * (p[:, 0] - c[0])
-                if np.any((s0 > 0) & (s1 > 0) & (s2 > 0)):
-                    continue
-            tris.append((i0, i1, i2))
-            idx.pop(k)
-            clipped = True
-            break
-        if not clipped:
-            # tolerate slight non-simplicity: clip the most convex corner
-            best, bestv = None, -np.inf
-            for k in range(m):
-                i0, i1, i2 = idx[(k - 1) % m], idx[k], idx[(k + 1) % m]
-                v = cross(verts[i0], verts[i1], verts[i2])
-                if v > bestv:
-                    best, bestv = k, v
-            i0, i1, i2 = idx[(best - 1) % m], idx[best], idx[(best + 1) % m]
-            tris.append((i0, i1, i2))
-            idx.pop(best)
-    if len(idx) == 3:
-        tris.append(tuple(idx))
-    return np.asarray(tris, dtype=np.int64)
-
-
-def earclip_anchor_weights(poly: np.ndarray,
-                           variant: str = "default",
-                           mode: str = "perp") -> np.ndarray:
-    """Per-vertex crack-fan anchor weights of the oracle's ear-clip object
-    decomposition (sim/oracle.py:_object_prisms).
-
-    MuJoCo never collides the smooth object contour: it collides the
-    ear-clip triangle PRISMS, and a finger face that penetrates the hull
-    near a vertex contacts the crack walls of every incident triangle —
-    measured ~40 contacts with normals spanning 120 deg at a single rim
-    vertex (docs/PARITY.md), an omni-directional anchor whose strength
-    follows the local fan DEGREE of the triangulation. The weight is the
-    incident-triangle count per vertex, normalized to mean 1 so the fitted
-    ``rough`` gain keeps its calibrated scale; ``variant="rolled"``
-    matches the oracle's rolled-start triangulation (the decisive
-    decomposition-sensitivity experiment).
-
-    Returns (P,) float64 weights aligned with ``poly``'s vertices; falls
-    back to uniform 1.0 if ear-clipping drops vertices (degenerate input).
-    """
-    from dgdm_tpu_torch.geom.contour import ensure_ccw
-
-    poly = np.asarray(poly, dtype=np.float64)
-    p = ensure_ccw(poly)
-    # ensure_ccw reverses CW input — compute in CCW order but return weights
-    # indexed by the CALLER's order (the docstring contract; engine2d
-    # make_scene attaches them to scene.anchor by index). Same area test.
-    x, y = poly[:, 0], poly[:, 1]
-    reversed_in = np.sum(x * np.roll(y, -1) - np.roll(x, -1) * y) < 0
-    n = len(p)
-    if variant == "rolled":
-        r = n // 3
-        tris = [tuple((i + r) % n for i in t)
-                for t in ear_clip(np.roll(p, -r, axis=0))]
-    else:
-        tris = ear_clip(p)
-    tris = np.asarray(tris, dtype=np.int64)
-    if mode == "degree":
-        deg = np.zeros(n, dtype=np.float64)
-        for t in tris.reshape(-1):
-            if 0 <= t < n:
-                deg[t] += 1.0
-        if deg.sum() <= 0:
-            return np.ones(n)
-        out = deg / deg.mean()
-        return out[::-1] if reversed_in else out
-    # mode == "perp": crack walls only block tangential sliding to the
-    # extent they stand perpendicular to the local surface — weight each
-    # INTERIOR edge at the vertex by |sin(angle to the contour tangent)|.
-    boundary = {(i, (i + 1) % n) for i in range(n)}
-    boundary |= {(b, a) for a, b in boundary}
-    tang = p[(np.arange(n) + 1) % n] - p[np.arange(n) - 1]
-    tang /= np.maximum(np.linalg.norm(tang, axis=1, keepdims=True), 1e-12)
-    w = np.zeros(n, dtype=np.float64)
-    seen = set()
-    for t in tris:
-        for a, b in ((t[0], t[1]), (t[1], t[2]), (t[2], t[0])):
-            if (a, b) in boundary or (a, b) in seen or (b, a) in seen:
-                continue
-            seen.add((a, b))
-            e = p[b] - p[a]
-            e /= max(np.linalg.norm(e), 1e-12)
-            w[a] += abs(e[0] * tang[a][1] - e[1] * tang[a][0])
-            w[b] += abs(e[0] * tang[b][1] - e[1] * tang[b][0])
-    if w.sum() <= 0:
-        return np.ones(n)
-    out = w / w.mean()
-    return out[::-1] if reversed_in else out
-
-
-def dedupe_polygon(verts: np.ndarray, tol: float = 1e-12) -> np.ndarray:
-    """Drop consecutive duplicate vertices (int-quantized contours have them)."""
-    keep = np.ones(len(verts), dtype=bool)
-    d = np.linalg.norm(verts - np.roll(verts, 1, axis=0), axis=1)
-    keep &= d > tol
-    if not keep.any():
-        return verts[:1]
-    return verts[keep]

@@ -36,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from dgdm_tpu_torch.core.cache import LRU
 from dgdm_tpu_torch.core.config import GRIPPER_2D, OBJECT_2D, SIM
 from dgdm_tpu_torch.core.profiling import TRACER
 from dgdm_tpu_torch.geom import contour as contour_lib
@@ -162,17 +163,6 @@ NEWTON_ITERS = 3
 _LS_ALPHAS = (1.0, 0.5)
 
 
-def upsample_contour(poly: np.ndarray, k: int) -> np.ndarray:
-    """Insert k-1 evenly spaced points on every polygon edge (densifies the
-    point-vs-heightfield contact set; see the JAX engine's notes)."""
-    if k <= 1:
-        return poly
-    nxt = np.roll(poly, -1, axis=0)
-    fr = np.arange(k, dtype=np.float64)[None, :, None] / k
-    dense = poly[:, None, :] * (1.0 - fr) + nxt[:, None, :] * fr
-    return dense.reshape(-1, poly.shape[1])
-
-
 @functools.lru_cache(maxsize=None)
 def _finger_operators_2d():
     """The jaw's coefficient operator, curve samples and curve basis (the
@@ -189,17 +179,15 @@ def _finger_operators_2d():
 # the port's C++, geom/jawmass.py, ~10 ms in the Python fallback, on one x86
 # core). An LRU keeps both per gripper: a hit (~1 us) is cheaper still, and 2D
 # datagen reuses grippers across objects.
-_FINGER_CACHE_2D: "dict[bytes, tuple]" = {}
-_FINGER_CACHE_2D_MAX = 4096
+_FINGER_CACHE_2D = LRU(4096)
 
 
 def _finger_host_work_2d(y: np.ndarray):
+    return _FINGER_CACHE_2D.get(y.tobytes(), lambda: _make_finger_2d(y))
+
+
+def _make_finger_2d(y: np.ndarray):
     g = GRIPPER_2D
-    key = y.tobytes()
-    hit = _FINGER_CACHE_2D.pop(key, None)
-    if hit is not None:
-        _FINGER_CACHE_2D[key] = hit     # pop+reinsert: true LRU, not FIFO
-        return hit
     coef_op, x_curve, basis = _finger_operators_2d()
     coef = np.einsum("skn,n->sk", coef_op, y)
     path = "native" if jawmass.available() else "python"
@@ -207,21 +195,11 @@ def _finger_host_work_2d(y: np.ndarray):
         area = polygon_lib.finger_cross_section_area(basis @ y, x_curve,
                                                      g.width)
     fmass = SIM.density * g.height * area
-    if len(_FINGER_CACHE_2D) >= _FINGER_CACHE_2D_MAX:
-        _FINGER_CACHE_2D.pop(next(iter(_FINGER_CACHE_2D)))
-    out = (coef, float(fmass))
-    _FINGER_CACHE_2D[key] = out
-    return out
+    return coef, float(fmass)
 
 
-def make_scene(
-    yl: np.ndarray,
-    yr: np.ndarray,
-    contour: np.ndarray,
-    support_grid: int = 8,
-    contour_upsample: int = 1,
-    triangulation: str = "uniform",
-) -> Scene2D:
+def make_scene(yl: np.ndarray, yr: np.ndarray,
+               contour: np.ndarray) -> Scene2D:
     """Host-side scene construction from raw control points + object contour.
 
     Mass/COM/inertia reproduce MuJoCo's model of the oracle scene exactly
@@ -235,33 +213,20 @@ def make_scene(
         fmass = np.array([ml, mr])
         poly = contour_lib.ensure_ccw(np.asarray(contour, dtype=np.float64))
         area, com, i0 = polygon_lib.object_mass_properties_2d(poly)
-        poly_c = upsample_contour(poly, contour_upsample)
-        spts, sw = polygon_lib.support_points(poly, grid=support_grid)
+        spts, sw = polygon_lib.support_points(poly, grid=8)
         mass = SIM.density * area * OBJECT_2D.height
         inertia = SIM.density * OBJECT_2D.height * i0
-        if triangulation == "uniform":
-            anchor = np.ones(1, np.float64)
-        else:
-            anchor = polygon_lib.earclip_anchor_weights(
-                poly, variant=triangulation)
-            if contour_upsample > 1:
-                k = contour_upsample
-                fr = np.arange(k, dtype=np.float64)[None, :] / k
-                nxt = np.roll(anchor, -1)
-                anchor = (anchor[:, None] * (1.0 - fr)
-                          + nxt[:, None] * fr).reshape(-1)[: len(poly_c)]
         f32 = functools.partial(torch.as_tensor, dtype=torch.float32)
         return Scene2D(
             coef_l=f32(coef_l),
             coef_r=f32(coef_r),
-            contour=f32(poly_c),
+            contour=f32(poly),
             com=f32(com),
             mass=f32(mass),
             inertia=f32(inertia),
             support_pts=f32(spts),
             support_w=f32(sw),
             finger_mass=f32(fmass),
-            anchor=f32(anchor),
         )
 
 
@@ -290,7 +255,7 @@ def pose_grid(
 # trailing (per-pair) dimensions of each Scene2D field
 _SCENE_NDIM = {"coef_l": 2, "coef_r": 2, "contour": 2, "com": 1, "mass": 0,
                "inertia": 0, "support_pts": 2, "support_w": 1,
-               "finger_mass": 1, "anchor": 1}
+               "finger_mass": 1}
 
 
 def expand_scene(scene: Scene2D, k: int) -> Scene2D:
@@ -556,8 +521,7 @@ def step_jacobi(scene: Scene2D, state: State2D, ctrl, dt: float = SIM.dt,
     lam_sx = torch.zeros_like(n_i)
     lam_sy = torch.zeros_like(n_i)
     lam_w = torch.zeros_like(n_i)
-    anchor = scene.anchor.unsqueeze(-2)
-    cap_rough = rough * m_eff_t * _min(depth_el, ROUGH_SAT) * anchor
+    cap_rough = rough * m_eff_t * _min(depth_el, ROUGH_SAT)
     cap_s = mu_p * n_i * dt
     cap_w = mu_t * n_i * dt
     sw = scene.support_w
@@ -693,7 +657,7 @@ def step_newton(scene: Scene2D, state: State2D, ctrl, dt: float = SIM.dt,
     vn0 = rows(comp_n, u0)
     target = (1.0 - d_imp * b_con * dt) * vn0 + d_imp * dt * k_con * depth
     depth_el = act * _clip(depth, 0.0, DEPTH_EL_CAP)
-    cap_rough = rough * m_eff_t * depth_el * scene.anchor.unsqueeze(-2)
+    cap_rough = rough * m_eff_t * depth_el
 
     # plane support rows (normal handled by the explicit z penalty)
     depth_z = SIM.plane_z - state.zb

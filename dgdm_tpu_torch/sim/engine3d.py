@@ -48,6 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dgdm_tpu_torch.core.cache import LRU
 from dgdm_tpu_torch.core.config import GRIPPER_3D, SIM
 from dgdm_tpu_torch.sim.engine2d import (
     B_CONTACT,
@@ -260,30 +261,19 @@ def corner_weights_3d(pts: np.ndarray, z_tol: float = 2e-3,
 # masses (~0.03 s a gripper, every scene) and, for the pure engine only, the
 # height-grid bake (~0.2 s a gripper; 1,024 entries of (2, 193, 65, 3)
 # float32 are ~300 MB).
-_GRIP_CACHE: "dict[bytes, np.ndarray]" = {}
-_HGRID_CACHE: "dict[bytes, np.ndarray]" = {}
-_GRIP_CACHE_MAX = 1024
-
-
-def _lru(cache: dict, key: bytes, make):
-    hit = cache.pop(key, None)
-    if hit is None:
-        hit = make()
-        if len(cache) >= _GRIP_CACHE_MAX:
-            cache.pop(next(iter(cache)))
-    cache[key] = hit                # pop+reinsert: true LRU, not FIFO
-    return hit
+_GRIP_CACHE = LRU(1024)
+_HGRID_CACHE = LRU(1024)
 
 
 def _gripper_host_work(yl: np.ndarray, yr: np.ndarray) -> np.ndarray:
     key = yl.tobytes() + yr.tobytes() + CONTACT_SURFACE_3D.encode()
-    return _lru(_GRIP_CACHE, key, lambda: finger_masses_3d(yl, yr))
+    return _GRIP_CACHE.get(key, lambda: finger_masses_3d(yl, yr))
 
 
 def height_grids(yl: np.ndarray, yr: np.ndarray) -> np.ndarray:
     """``bake_height_grids(yl, yr)`` through its LRU."""
     key = yl.tobytes() + yr.tobytes() + CONTACT_SURFACE_3D.encode()
-    return _lru(_HGRID_CACHE, key, lambda: bake_height_grids(yl, yr))
+    return _HGRID_CACHE.get(key, lambda: bake_height_grids(yl, yr))
 
 
 def make_scene(

@@ -6,7 +6,7 @@ shared pose batch and runs every (pair, pose) rollout for all steps:
 - on CUDA tensors it launches the hand-written kernel
   ``dgdm_tpu_torch/csrc/rollout2d.cu`` (built with ``nvcc`` for ``sm_90a`` on
   first use into ``dgdm_tpu_torch/_build/`` and bound with ctypes, by
-  ``sim/cuda_lib.py``);
+  ``core/native.py``);
 - on CPU tensors it runs the plain PyTorch version
   (``sim/rollout2d_ref.py``).
 
@@ -27,16 +27,15 @@ raises. ``KERNEL_LAUNCHES`` counts kernel launches per instantiation:
 from __future__ import annotations
 
 import ctypes
-import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from dgdm_tpu_torch.core import native
 from dgdm_tpu_torch.core.config import GRIPPER_2D, SIM
 from dgdm_tpu_torch.core.transfer import upload
 from dgdm_tpu_torch.sim import engine2d
-from dgdm_tpu_torch.sim.cuda_lib import CudaLibrary
 from dgdm_tpu_torch.sim.rollout2d_ref import (
     EPS_SETTLED,
     LANE,
@@ -49,9 +48,7 @@ from dgdm_tpu_torch.sim.rollout2d_ref import (
 KERNEL_LAUNCHES = {"rollout2d": 0, "rollout2d_jacobi": 0}
 # the launch counter of each contact solver's instantiation
 COUNTER = {"newton": "rollout2d", "jacobi": "rollout2d_jacobi"}
-# threads per rollout, blocks per cluster, threads per block,
-# cudaOccupancyMaxActiveClusters and bytes of shared memory a block, of the
-# last launch
+# the launch plan of the last launch (core/native.PLAN_FIELDS)
 LAST_PLAN: dict = {}
 # threads per rollout of the kernel's layout (csrc/rollout2d.cu)
 THREADS_PER_ROLLOUT = 16
@@ -77,11 +74,11 @@ SOLVER_CODES = {"newton": 0, "jacobi": 1}
 def _bind(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
     lib.rollout2d_launch.argtypes = [p] * 6 + [ctypes.c_int] * 4 + [
-        _Params, ctypes.POINTER(ctypes.c_int * 5), p]
+        _Params, ctypes.POINTER(native.Plan), p]
     lib.rollout2d_launch.restype = ctypes.c_int
 
 
-LIBRARY = CudaLibrary("rollout2d.cu", _bind)
+LIBRARY = native.NativeLibrary("rollout2d.cu", _bind, **native.NVCC)
 
 
 def _params(steps, regrasp_every, snapshot_step, solver) -> _Params:
@@ -116,12 +113,7 @@ def _check_inputs(coefs, contour, support, scalars, poses):
     if poses.ndim != 2 or poses.shape[1] != 3 or poses.shape[0] % LANE:
         raise ValueError(f"poses must be (N, 3) with N % {LANE} == 0, "
                          f"got {tuple(poses.shape)}")
-    devs = {t.device for t in (coefs, contour, support, scalars, poses)}
-    if len(devs) != 1:
-        raise ValueError(f"inputs lie on several devices: {devs}")
-    for t in (coefs, contour, support, scalars, poses):
-        if t.dtype != torch.float32:
-            raise TypeError(f"rollout inputs must be float32, got {t.dtype}")
+    native.check_inputs((coefs, contour, support, scalars, poses))
 
 
 def rollout_cuda(coefs, contour, support, scalars, poses, steps,
@@ -131,27 +123,13 @@ def rollout_cuda(coefs, contour, support, scalars, poses, steps,
     fit a block: on the H100 P > 384 (Newton) or, with 64 supports, P > 272
     (Jacobi, 12 floats a contour point and 3 a support point)."""
     solver = resolve_solver(solver)
-    lib = LIBRARY.get()
-    ins = [t.contiguous() for t in (coefs, contour, support, scalars, poses)]
     b, p, s, n = coefs.shape[0], contour.shape[1], support.shape[1], \
         poses.shape[0]
-    out = torch.empty((8, b, n), dtype=torch.float32, device=poses.device)
-    stream = torch.cuda.current_stream(poses.device).cuda_stream
-    plan = (ctypes.c_int * 5)()
-    err = lib.rollout2d_launch(
-        *[t.data_ptr() for t in ins], out.data_ptr(), b, p, s, n,
-        _params(steps, regrasp_every, snapshot_step, solver),
-        ctypes.byref(plan),
-        stream)
-    LAST_PLAN.update(zip(("threads_per_rollout", "cluster", "threads",
-                          "max_active_clusters", "shared_bytes"), plan))
-    if err != 0:
-        raise RuntimeError(
-            f"rollout2d kernel launch failed: CUDA error {err} (launch plan "
-            f"{LAST_PLAN}, solver {solver}; the shared memory a block needs "
-            f"grows with the point count, {p} here)")
-    KERNEL_LAUNCHES[COUNTER[solver]] += 1
-    return out
+    return native.launch(
+        LIBRARY.get().rollout2d_launch,
+        (coefs, contour, support, scalars, poses), (8, b, n), (b, p, s, n),
+        _params(steps, regrasp_every, snapshot_step, solver), LAST_PLAN,
+        KERNEL_LAUNCHES, COUNTER[solver])
 
 
 def rollout(coefs, contour, support, scalars, poses,
@@ -202,11 +180,6 @@ def scene_arrays(scenes, calib: Optional[engine2d.Calib] = None,
     slots (layout: dgdm_tpu/sim/pallas2d.py:scene_arrays)."""
     if calib is None:
         calib = engine2d.default_calib()
-    anc = scenes.anchor.numpy()
-    if anc.ndim and anc.shape[-1] > 1 and not np.allclose(anc, 1.0):
-        warnings.warn(
-            "scene_arrays: non-uniform Scene2D.anchor is ignored by the "
-            "rollout kernel", stacklevel=2)
     coefs = np.stack([scenes.coef_l.numpy(), scenes.coef_r.numpy()], axis=1)
     spts = scenes.support_pts.numpy()
     b, s_ = spts.shape[:2]

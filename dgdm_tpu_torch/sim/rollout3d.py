@@ -6,7 +6,7 @@ a shared pose batch and runs every (pair, pose) rollout for all steps:
 - on CUDA tensors it launches the hand-written kernel
   ``dgdm_tpu_torch/csrc/rollout3d.cu`` (built with ``nvcc`` for ``sm_90a`` on
   first use into ``dgdm_tpu_torch/_build/`` and bound with ctypes, by
-  ``sim/cuda_lib.py``);
+  ``core/native.py``);
 - on CPU tensors it runs the plain PyTorch version
   (``sim/rollout3d_ref.py``).
 
@@ -34,10 +34,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from dgdm_tpu_torch.core import native
+from dgdm_tpu_torch.core.cache import LRU
 from dgdm_tpu_torch.core.config import GRIPPER_3D, SIM
 from dgdm_tpu_torch.core.transfer import upload
 from dgdm_tpu_torch.sim import engine3d
-from dgdm_tpu_torch.sim.cuda_lib import CudaLibrary
 from dgdm_tpu_torch.sim.engine2d import Calib
 from dgdm_tpu_torch.sim.rollout3d_ref import (
     LANE,
@@ -64,9 +65,7 @@ KERNEL_LAUNCHES = {"rollout3d": 0, "rollout3d_newton_tol": 0,
 # the kernel's instantiations (csrc/rollout3d.cu) and their counters
 SOLVER_CODES = {"rollout3d": 0, "rollout3d_jacobi": 1,
                 "rollout3d_newton_tol": 2}
-# threads per rollout, blocks per cluster, threads per block,
-# cudaOccupancyMaxActiveClusters and bytes of shared memory a block, of the
-# last launch
+# the launch plan of the last launch (core/native.PLAN_FIELDS)
 LAST_PLAN: dict = {}
 # threads per rollout of the kernel's layout (csrc/rollout3d.cu)
 THREADS_PER_ROLLOUT = 32
@@ -93,11 +92,11 @@ class _Params(ctypes.Structure):
 def _bind(lib: ctypes.CDLL) -> None:
     p = ctypes.c_void_p
     lib.rollout3d_launch.argtypes = [p] * 5 + [ctypes.c_int] * 3 + [
-        _Params, ctypes.POINTER(ctypes.c_int * 5), p]
+        _Params, ctypes.POINTER(native.Plan), p]
     lib.rollout3d_launch.restype = ctypes.c_int
 
 
-LIBRARY = CudaLibrary("rollout3d.cu", _bind)
+LIBRARY = native.NativeLibrary("rollout3d.cu", _bind, **native.NVCC)
 
 
 def instantiation(solver: Optional[str] = None,
@@ -131,12 +130,7 @@ def _check_inputs(coefs, points, scalars, poses):
     if poses.ndim != 2 or poses.shape[1] != 3 or poses.shape[0] % LANE:
         raise ValueError(f"poses must be (N, 3) with N % {LANE} == 0, "
                          f"got {tuple(poses.shape)}")
-    devs = {t.device for t in (coefs, points, scalars, poses)}
-    if len(devs) != 1:
-        raise ValueError(f"inputs lie on several devices: {devs}")
-    for t in (coefs, points, scalars, poses):
-        if t.dtype != torch.float32:
-            raise TypeError(f"rollout inputs must be float32, got {t.dtype}")
+    native.check_inputs((coefs, points, scalars, poses))
 
 
 def rollout_cuda(coefs, points, scalars, poses, steps, regrasp_every,
@@ -150,25 +144,12 @@ def rollout_cuda(coefs, points, scalars, poses, steps, regrasp_every,
     inst = instantiation(solver, newton_tol)
     if newton_iters is None:
         newton_iters = NEWTON_KERNEL_ITERS3
-    lib = LIBRARY.get()
-    ins = [t.contiguous() for t in (coefs, points, scalars, poses)]
     b, p, n = points.shape[0], points.shape[1], poses.shape[0]
-    out = torch.empty((12, b, n), dtype=torch.float32, device=poses.device)
-    stream = torch.cuda.current_stream(poses.device).cuda_stream
-    plan = (ctypes.c_int * 5)()
-    err = lib.rollout3d_launch(
-        *[t.data_ptr() for t in ins], out.data_ptr(), b, p, n,
+    return native.launch(
+        LIBRARY.get().rollout3d_launch, (coefs, points, scalars, poses),
+        (12, b, n), (b, p, n),
         _params(steps, regrasp_every, snapshot_step, inst, int(newton_iters),
-                float(newton_tol)), ctypes.byref(plan), stream)
-    LAST_PLAN.update(zip(("threads_per_rollout", "cluster", "threads",
-                          "max_active_clusters", "shared_bytes"), plan))
-    if err != 0:
-        raise RuntimeError(
-            f"rollout3d kernel launch failed: CUDA error {err} (launch plan "
-            f"{LAST_PLAN}, {inst}; the shared memory a block needs grows "
-            f"with the point count, {p} here)")
-    KERNEL_LAUNCHES[inst] += 1
-    return out
+                float(newton_tol)), LAST_PLAN, KERNEL_LAUNCHES, inst)
 
 
 def rollout(coefs, points, scalars, poses, steps: int = SIM.steps_3d,
@@ -214,8 +195,7 @@ def profile_batch(coefs, points, scalars, poses, steps: int = SIM.steps_3d,
     return res + (tuple(out[9:]),) if return_step_mix else res
 
 
-_FIT_CACHE: "dict[bytes, np.ndarray]" = {}
-_FIT_CACHE_MAX = 2048
+_FIT_CACHE = LRU(2048)
 
 
 def scene_arrays_3d(scenes, calib: Optional[Calib] = None,
@@ -235,22 +215,8 @@ def scene_arrays_3d(scenes, calib: Optional[Calib] = None,
     mode = engine3d.CONTACT_SURFACE_3D.encode()
     keys = [both[i].tobytes() + sides[i].encode() + mode
             for i in range(2 * b)]
-    miss = [i for i, k in enumerate(keys) if k not in _FIT_CACHE]
-    fresh: "dict[bytes, np.ndarray]" = {}
-    if miss:
-        new = fit_surface_batch(both[miss], sides=[sides[i] for i in miss])
-        for j, i in enumerate(miss):
-            fresh[keys[i]] = new[j]
-    # materialise the batch before evicting; pop+reinsert hits (true LRU)
-    rows = []
-    for k in keys:
-        v = fresh.get(k)
-        if v is None:
-            v = _FIT_CACHE.pop(k)
-        _FIT_CACHE[k] = v
-        rows.append(v)
-    while len(_FIT_CACHE) > _FIT_CACHE_MAX:
-        _FIT_CACHE.pop(next(iter(_FIT_CACHE)))
+    rows = _FIT_CACHE.get_many(keys, lambda miss: fit_surface_batch(
+        both[miss], sides=[sides[i] for i in miss]))
     fitted = np.stack(rows)                          # (2B, TOT_SEG, 4, 3)
     coefs = np.stack([fitted[:b], fitted[b:]], axis=1).astype(np.float32)
     pts = scenes.points.numpy()

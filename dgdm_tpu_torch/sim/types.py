@@ -44,8 +44,6 @@ class Scene2D:
     support_pts: torch.Tensor   # (S, 2) plane-contact support points, body frame
     support_w: torch.Tensor     # (S,) weights, sum to 1 over the interior
     finger_mass: torch.Tensor   # (2,) per-jaw mass (left, right)
-    anchor: torch.Tensor        # (P,) or (1,) per-vertex crack-fan anchor
-                                # weights; (1,) of 1.0 = uniform
 
 
 @dataclasses.dataclass

@@ -61,10 +61,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+from dgdm_tpu_torch.core import native  # noqa: E402
 from dgdm_tpu_torch.core.config import SIM  # noqa: E402
 from dgdm_tpu_torch.sim import (engine2d, engine3d, rollout2d,  # noqa: E402
                                 rollout3d)
-from dgdm_tpu_torch.sim.cuda_lib import CudaLibrary, nvcc  # noqa: E402
 
 # kernel -> (module, solver, keyword arguments, ptxas entry tag, golden)
 KERNELS = {
@@ -82,9 +82,9 @@ KERNELS = {
 }
 
 
-def library(mod, checkout: str) -> CudaLibrary:
+def library(mod, checkout: str) -> native.NativeLibrary:
     src = os.path.basename(mod.LIBRARY.src)
-    lib = CudaLibrary(src, mod._bind)
+    lib = native.NativeLibrary(src, mod._bind, **native.NVCC)
     lib.src = os.path.join(checkout, "dgdm_tpu_torch", "csrc", src)
     lib.name = f"{mod.LIBRARY.name}_other"
     return lib
@@ -98,7 +98,7 @@ def sass(so: str) -> dict:
     without the anonymous namespace -> (its SASS instructions with their
     encodings, by ``cuobjdump -sass``; the count of each of SASS_OPS among
     their opcodes)."""
-    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    tool = os.path.join(os.path.dirname(native.nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", so], capture_output=True,
                           text=True, check=True).stdout
     ins = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;"

@@ -19,6 +19,10 @@ JAX_PKG, PORT_PKG = ROOT / "dgdm_tpu", ROOT / "dgdm_tpu_torch"
 
 _ORACLE = ("the MuJoCo oracle imports no JAX and lies on no path of the "
            "port; the port's tests call the JAX package's module directly")
+_ANCHOR = ("the rejected ear-clip anchor experiment (non-uniform "
+           "triangulation, upsampled contours); no path of the port calls it")
+_GEOMKIT = ("native/geomkit.cpp's bindings serve the MuJoCo oracle and the "
+            "rejected anchor experiment; no path of the port calls them")
 _PALLAS2D = "K1's launcher and its plain version"
 _PALLAS3D = "K2's launcher and its plain version"
 
@@ -31,6 +35,15 @@ COUNTERPARTS = {
     ("core/profiling.py", "trace"): (
         "core/profiling.py", "TraceWindow",
         "a bounded torch.profiler window over a loop's steps"),
+    ("geom/native.py", "available"): (None, None, _GEOMKIT),
+    ("geom/native.py", "build"): (None, None, _GEOMKIT),
+    ("geom/native.py", "ear_clip"): (None, None, _GEOMKIT),
+    ("geom/native.py", "points_in_polygon"): (None, None, _GEOMKIT),
+    ("geom/native.py", "resample_contour"): (None, None, _GEOMKIT),
+    ("geom/native.py", "trace_largest_contour"): (None, None, _GEOMKIT),
+    ("geom/polygon.py", "dedupe_polygon"): (None, None, _ANCHOR),
+    ("geom/polygon.py", "ear_clip"): (None, None, _ANCHOR),
+    ("geom/polygon.py", "earclip_anchor_weights"): (None, None, _ANCHOR),
     ("models/unet1d.py", "Downsample1d"): (
         "models/unet1d.py", "ConditionalUnet1D",
         "a plain strided nn.Conv1d inside the UNet"),
@@ -41,6 +54,7 @@ COUNTERPARTS = {
     ("sim/oracle.py", "build_scene_xml_2d"): (None, None, _ORACLE),
     ("sim/oracle3d.py", "Oracle3D"): (None, None, _ORACLE),
     ("sim/oracle3d.py", "build_scene_xml_3d"): (None, None, _ORACLE),
+    ("sim/engine2d.py", "upsample_contour"): (None, None, _ANCHOR),
     ("sim/pallas2d.py", "EPS_SETTLED"): (
         "sim/rollout2d_ref.py", "EPS_SETTLED", _PALLAS2D),
     ("sim/pallas2d.py", "LANE"): ("sim/rollout2d_ref.py", "LANE", _PALLAS2D),

@@ -1,5 +1,5 @@
 """The build-on-first-use loader of the port's CUDA kernels
-(dgdm_tpu_torch/sim/cuda_lib.py) names a library by a hash of everything
+(dgdm_tpu_torch/core/native.py) names a library by a hash of everything
 that goes into it: the source, every header beside it and the flags. Needs
 no nvcc: ``path()`` is exercised on sources in a temporary directory, and
 ``build()`` with a stand-in for the compiler.
@@ -8,7 +8,7 @@ No JAX counterpart (the JAX package's kernels are compiled by JAX)."""
 import os
 import subprocess
 
-from dgdm_tpu_torch.sim import cuda_lib
+from dgdm_tpu_torch.core import native
 from dgdm_tpu_torch.sim import rollout2d, rollout3d
 
 
@@ -17,7 +17,7 @@ def _library(tmp_path):
     src.mkdir()
     (src / "kernel.cu").write_text('#include "common.cuh"\nint f();\n')
     (src / "common.cuh").write_text("// shared parts\n")
-    lib = cuda_lib.CudaLibrary("kernel.cu", lambda _lib: None)
+    lib = native.NativeLibrary("kernel.cu", lambda _lib: None, **native.NVCC)
     lib.src = str(src / "kernel.cu")
     lib.build_dir = str(tmp_path / "_build")
     return lib, src
@@ -45,8 +45,8 @@ def test_path_changes_with_the_source_and_the_flags(tmp_path, monkeypatch):
     (src / "kernel.cu").write_text('#include "common.cuh"\nint g();\n')
     changed = lib.path()
     assert changed != before
-    monkeypatch.setattr(cuda_lib, "NVCC_FLAGS",
-                        cuda_lib.NVCC_FLAGS + ("-DX=1",))
+    monkeypatch.setattr(native, "NVCC_FLAGS",
+                        native.NVCC_FLAGS + ("-DX=1",))
     assert lib.path() != changed
 
 
@@ -79,8 +79,8 @@ def test_build_reuses_a_library_unless_forced(tmp_path, monkeypatch):
         return subprocess.CompletedProcess(
             cmd, 0, "", "ptxas info    : Used 128 registers\n")
 
-    monkeypatch.setattr(cuda_lib, "nvcc", lambda: "nvcc")
-    monkeypatch.setattr(cuda_lib.subprocess, "run", fake_run)
+    monkeypatch.setattr(native, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(native.subprocess, "run", fake_run)
     assert lib.build() == so
     assert not calls and lib.build_log == ""
     assert lib.build(force=True) == so

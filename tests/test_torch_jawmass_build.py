@@ -1,5 +1,6 @@
 """How the port builds, loads and falls back from its C++ jaw mass
-(``dgdm_tpu_torch/geom/jawmass.py``, ``sim/cuda_lib.HostLibrary``), and
+(``dgdm_tpu_torch/geom/jawmass.py``, ``core/native.NativeLibrary`` with
+the ``CXX`` toolchain), and
 the spans ``make_scene`` opens around it:
 
 - the library is named by a hash of its source and ``CXX_FLAGS``, which
@@ -17,19 +18,21 @@ import numpy as np
 import pytest
 import torch
 
+from dgdm_tpu_torch.core import native
+from dgdm_tpu_torch.core.cache import LRU
 from dgdm_tpu_torch.core.config import GRIPPER_2D
 from dgdm_tpu_torch.core.profiling import TRACER
 from dgdm_tpu_torch.geom import jawmass
 from dgdm_tpu_torch.geom.contour import extract_contours, synthetic_icon
 from dgdm_tpu_torch.geom.fingers import denormalize_y
-from dgdm_tpu_torch.sim import cuda_lib, engine2d
+from dgdm_tpu_torch.sim import engine2d
 from tests import torch_parity  # noqa: F401  (one torch thread)
 
 
 @pytest.fixture
 def fresh_cache(monkeypatch):
     """An empty finger cache for the test (the module's is left as it was)."""
-    monkeypatch.setattr(engine2d, "_FINGER_CACHE_2D", {})
+    monkeypatch.setattr(engine2d, "_FINGER_CACHE_2D", LRU(4096))
 
 
 @pytest.fixture
@@ -52,14 +55,14 @@ def _designs(seed, count):
 
 def _host_library(tmp_path, source_text):
     (tmp_path / "jawmass.cpp").write_text(source_text)
-    lib = cuda_lib.HostLibrary("jawmass.cpp", jawmass._bind)
+    lib = native.NativeLibrary("jawmass.cpp", jawmass._bind, **native.CXX)
     lib.src = str(tmp_path / "jawmass.cpp")
     lib.build_dir = str(tmp_path / "_build")
     return lib
 
 
 def test_flags_keep_the_mass_independent_of_the_host():
-    flags = cuda_lib.CXX_FLAGS
+    flags = native.CXX_FLAGS
     assert "-ffp-contract=off" in flags
     assert not any(f.startswith(("-ffast-math", "-march", "-Ofast",
                                  "-mtune")) for f in flags)
@@ -75,7 +78,7 @@ def test_path_changes_with_the_source_and_the_flags(tmp_path, monkeypatch):
     (tmp_path / "jawmass.cpp").write_text(text + "\n// edited\n")
     edited = lib.path()
     assert edited != before
-    monkeypatch.setattr(cuda_lib, "CXX_FLAGS", cuda_lib.CXX_FLAGS + ("-g",))
+    monkeypatch.setattr(native, "CXX_FLAGS", native.CXX_FLAGS + ("-g",))
     assert lib.path() != edited
 
 
@@ -105,7 +108,7 @@ def test_a_broken_source_raises_instead_of_falling_back(tmp_path,
         with pytest.raises(RuntimeError, match="failed on"):
             jawmass.available()
         yl, yr = _designs(1, 1)[0]
-        monkeypatch.setattr(engine2d, "_FINGER_CACHE_2D", {})
+        monkeypatch.setattr(engine2d, "_FINGER_CACHE_2D", LRU(4096))
         with pytest.raises(RuntimeError, match="failed on"):
             engine2d.make_scene(yl, yr, extract_contours(synthetic_icon(0)))
     finally:
@@ -113,7 +116,7 @@ def test_a_broken_source_raises_instead_of_falling_back(tmp_path,
 
 
 def test_no_compiler_falls_back_to_python(monkeypatch, fresh_cache, tracer):
-    monkeypatch.setattr(cuda_lib, "cxx", lambda: None)
+    monkeypatch.setattr(native, "cxx", lambda: None)
     jawmass.available.cache_clear()
     try:
         assert not jawmass.available()
@@ -132,7 +135,7 @@ def test_fallback_scenes_equal_native_scenes(monkeypatch):
     assert jawmass.available()
 
     def scenes():
-        monkeypatch.setattr(engine2d, "_FINGER_CACHE_2D", {})
+        monkeypatch.setattr(engine2d, "_FINGER_CACHE_2D", LRU(4096))
         return [engine2d.make_scene(yl, yr, c)
                 for c in contours for yl, yr in designs]
 

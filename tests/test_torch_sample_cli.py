@@ -7,6 +7,7 @@ AST scan that the port and chip_smoke.py import nothing of JAX or
 dgdm_tpu."""
 
 import ast
+import glob
 import json
 import os
 from unittest import mock
@@ -281,6 +282,7 @@ def _imports(path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
 
 
 def test_port_imports_no_jax():
@@ -291,3 +293,14 @@ def test_port_imports_no_jax():
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in FORBIDDEN, (path, mod)
+
+
+def test_core_and_geom_import_nothing_of_sim():
+    """The layers run one way: ``core`` and ``geom`` sit below ``sim``."""
+    files = [p for layer in ("core", "geom") for p in glob.glob(
+        os.path.join(ROOT, "dgdm_tpu_torch", layer, "*.py"))]
+    assert len(files) > 10
+    for path in files:
+        for mod in _imports(path):
+            assert not (mod + ".").startswith("dgdm_tpu_torch.sim."), (
+                path, mod)
