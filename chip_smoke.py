@@ -414,7 +414,7 @@ def k1_flops(p: int, s: int, steps: int, cfull, ccheap) -> float:
 
 
 def k1_bytes(b: int, p: int, s: int, n: int) -> int:
-    return 4 * (b * (2 * 6 * 4 + 2 * p + 4 * s + 16) + 3 * n + 8 * b * n)
+    return 4 * (b * (2 * 6 * 4 + 2 * p + 4 * s + 16) + 3 * n + 9 * b * n)
 
 
 def k2_view(raw, poses) -> dict:
@@ -951,7 +951,7 @@ def phase_jacobi_design(dev) -> dict:
                                 sum_group=rollout2d.THREADS_PER_ROLLOUT)
         torch.cuda.synchronize()
         dg_plain_ms = 1e3 * (time.perf_counter() - t0)
-        bitwise("K1 Jacobi datagen 8x9088x200", res, ref, range(8))
+        bitwise("K1 Jacobi datagen 8x9088x200", res, ref, range(9))
         res_np = {k: v.cpu().numpy() for k, v in zip(NAMES, res)}
         check((res_np["ccheap"] == 0).all(), "Jacobi: no cheap steps")
         stats = parity(res_np, {k: v.cpu().numpy()
@@ -1146,7 +1146,7 @@ def phase_jacobi_design(dev) -> dict:
         bitwise(f"K1 Jacobi verify 16x384x{cut} (depth cut from 8,000 to "
                 f"{cut}, 1,000 before the time limit's cut; regrasp and "
                 f"snapshot at {ekw['snapshot_step']})", c_out, c_ref,
-                range(8))
+                range(9))
         c_full = float(c_out[6][:, ::128].float().mean())
         check(c_full > 0, f"K1 Jacobi verify cut to {cut}: no full steps")
         print(f"  plain Jacobi K1 at 16x384x{cut}: {cut_plain_s:.1f}s; full "
@@ -2653,7 +2653,7 @@ def main() -> int:
     ref = profile_batch_ref(*arrs8, poses)
     torch.cuda.synchronize()
     dg_plain_ms = 1e3 * (time.perf_counter() - t0)
-    bitwise("K1 datagen 8x9088x200", out, ref, range(8))
+    bitwise("K1 datagen 8x9088x200", out, ref, range(9))
     dg_bound, dg_bound_by = bound_ms(
         k1_flops(contour.shape[0], arrs8[2].shape[1], SIM.steps_2d,
                  out[6].cpu(), out[7].cpu()),

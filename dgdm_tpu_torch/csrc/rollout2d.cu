@@ -29,19 +29,20 @@
 // what was measured against it).
 //
 // Bound: operations, not bytes. A call reads ~2.5 KB per pair plus 12 bytes
-// per pose and writes 32 bytes per pose; each full-solve step costs a few
+// per pose and writes 36 bytes per pose; each full-solve step costs a few
 // thousand flops per contour point, most of them the point's contact
 // geometry, which does not change during a solve. So each lane computes its
 // points' geometry once per solve into a slab of shared memory (9 floats a
 // point, 7 points a lane at the package's 100 contour points: 63 KB a block,
 // two blocks an SM) and the six passes over the points of a solve's three
-// Newton iterations read it back. Measured on an NVIDIA H100 80GB HBM3 at
-// 700 W against a body that recomputed the geometry in every pass (since
-// removed): 358 ms against 528 ms at 16 pairs x 384 poses x 8,000 steps, 114
-// against 171 ms at 8 x 9,088 x 200. The slab bounds the point count: the
-// launcher refuses a contour that needs more shared memory than a block may
-// have (P > 384 on the H100; above ~170 points an SM holds one block, not
-// two). Nothing of a step touches device memory.
+// Newton iterations read back the rows of the points in contact (below).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W against a body that
+// recomputed the geometry in every pass (since removed): 358 ms against
+// 528 ms at 16 pairs x 384 poses x 8,000 steps, 114 against 171 ms at 8 x
+// 9,088 x 200. The slab bounds the point count: the launcher refuses a
+// contour that needs more shared memory than a block may have (P > 384 on
+// the H100; above ~170 points an SM holds one block, not two). Nothing of a
+// step touches device memory.
 //
 // The Newton body's point sums. Each pass reduces its float64 sums as one
 // vector (a reduce-scatter over the butterfly's lane pairs, so each total
@@ -64,6 +65,24 @@
 // 272 and 384 points; 122 registers and 0 spills either way. Parking the
 // totals in the rollout's Lane slot and reading them back as float4 (124
 // registers) was 1-5% slower than the broadcast.
+//
+// Contact compaction (Newton). A point out of contact (act == 0) has
+// w_nn = w_tt = cap_rough = 0, so each of its 23 contour-pass terms and 3
+// line-search terms is +0 or -0, and adding it leaves a float64 partial
+// that starts at +0.0 bit for bit as it was. So the geometry pass, which
+// visits every point because it decides contact, stores only the points in
+// contact, at the next free rows of the thread's column, and the contour
+// passes visit those rows: the same partials in the same order, every total
+// the one of the pass over all points. A warp runs its loop as often as its
+// lane with the most points in contact. Output plane 8 counts, per rollout,
+// its points in contact summed over its solves (both solvers): the share
+// of point visits that remain is plane 8 / (P * plane 6). Measured on an
+// NVIDIA H100 80GB HBM3 at 700 W in one process against the body before
+// (every row in each contour pass; scripts/probe_kernel_ab.py): 68.9-69.0
+// against 103.1-104.0 ms at 8 pairs x 9,088 poses x 200 steps (1.375% of
+// the full solves' point visits in contact), 209.0-211.6 against
+// 324.6-336.7 ms at 16 x 384 x 8,000 (1.60%), planes 0-7 bitwise equal at
+// 17, 100, 272 and 384 points; 122 registers and 0 spills either way.
 //
 // Jacobi (Solver = kJacobi). Every normal step is a full solve (no cheap
 // path; the settled-travel gate, regrasp and snapshot are shared): the
@@ -238,7 +257,10 @@ __device__ __forceinline__ void contact_at(
   q.me_t = me_t; q.vn0 = vn0; q.is_l = is_l;
 }
 
-__device__ __forceinline__ void point_geo(
+// Returns whether the point is in contact (act != 0). One that is not has
+// w_nn = w_tt = cap_rough = 0, so each of its terms in the full solve's
+// contour sums is +0 or -0.
+__device__ __forceinline__ bool point_geo(
     const Shared& sh, const Pair& pc, const Rollout2DParams& prm,
     const Lane& L, int p, Geo& g) {
   const float d_imp = prm.impedance;
@@ -254,6 +276,7 @@ __device__ __forceinline__ void point_geo(
   g.w_tt = q.act * q.me_t / pc.c_r2;
   float depth_el = q.act * clampf(q.depth, 0.0f, prm.depth_el_cap);
   g.cap_rough = pc.rough * q.me_t * depth_el;
+  return q.act != 0.0f;
 }
 
 // A lane's contact geometry, held across the passes of a full solve: 9 of
@@ -365,24 +388,28 @@ __device__ __forceinline__ void support_sums(
 // Coupled semi-smooth Newton on the 5-DOF soft-constraint energy
 // (pallas2d.py:359-506): u = (vx, vy, om, qdl, qdr), in/out. Lane `sub` of
 // the rollout's G lanes takes the points sub, sub + G, ... The lane's
-// geometry is computed once, ahead of the Newton iterations, into `slab`
-// (the thread's column), and the passes read it back. Each pass reduces its
-// sums as one vector (the contour pass's 23 by rollout::group_sum_wide, the
-// supports' 8 and the line search's 6 by rollout::group_sum_vec), and every
-// lane receives every total: the Cholesky solve and the line search run on
-// all of them.
+// geometry is computed once, ahead of the Newton iterations; that of its
+// points in contact goes into `slab` (the thread's column), in increasing p
+// from row 0, and the contour passes read back those rows only (contact
+// compaction, above). Each pass reduces its sums as one vector (the
+// contour pass's 23 by rollout::group_sum_wide, the supports' 8 and the
+// line search's 6 by rollout::group_sum_vec), and every lane receives every
+// total: the Cholesky solve and the line search run on all of them.
+// Returns the lane's count of points in contact.
 template <int G>
-__device__ __forceinline__ void full_solve(
+__device__ __forceinline__ int full_solve(
     const Shared& sh, const Pair& pc, const Rollout2DParams& prm,
     const Lane& L, int P, int S, int sub, float* slab, float* u) {
   constexpr int kThreads = rollout::Layout<G>::kThreads;
   const float* uu = L.uu;
   const float n_total = L.n_total;
   const float w_w = pc.w_w;
-  for (int p = sub, k = 0; p < P; p += G, ++k) {
+  int n_act = 0;
+  for (int p = sub; p < P; p += G) {
     Geo g;
-    point_geo(sh, pc, prm, L, p, g);
-    geo_store<kThreads>(slab, k, g);
+    if (!point_geo(sh, pc, prm, L, p, g)) continue;
+    geo_store<kThreads>(slab, n_act, g);
+    ++n_act;
   }
   for (int it = 0; it < prm.newton_iters; ++it) {
     // ---- pass over points: grip load, gradient and Hessian sums ----
@@ -394,7 +421,7 @@ __device__ __forceinline__ void full_solve(
       double s[23];
 #pragma unroll
       for (int q = 0; q < 23; ++q) s[q] = 0.0;
-      for (int p = sub, k = 0; p < P; p += G, ++k) {
+      for (int k = 0; k < n_act; ++k) {
         Geo g;
         geo_load<kThreads>(slab, k, g);
         float vn, vt;
@@ -485,7 +512,7 @@ __device__ __forceinline__ void full_solve(
     double en[6];
 #pragma unroll
     for (int q = 0; q < 6; ++q) en[q] = 0.0;
-    for (int p = sub, k = 0; p < P; p += G, ++k) {
+    for (int k = 0; k < n_act; ++k) {
       Geo g;
       geo_load<kThreads>(slab, k, g);
       float vn, vt;
@@ -530,6 +557,7 @@ __device__ __forceinline__ void full_solve(
     for (int a = 0; a < 5; ++a)
       u[a] = take_new ? (best12 ? u1[a] : u2[a]) : u[a];
   }
+  return n_act;
 }
 
 // No finger contact reachable in the group: plane friction + torsion only,
@@ -714,9 +742,10 @@ __device__ __forceinline__ void jacobi_planar(const SupConst& c,
 // (pallas2d.py:221-334): u = (vx, vy, om, qdl, qdr) in/out, from the
 // step's start velocities. Lane `sub` takes the contour points and the
 // support points sub, sub + G, ... Each pass reduces its sums as one vector
-// (rollout::group_sum_vec), torsion's single sum by the butterfly.
+// (rollout::group_sum_vec), torsion's single sum by the butterfly. Returns
+// the lane's count of points in contact.
 template <int G>
-__device__ __forceinline__ void jacobi_solve(
+__device__ __forceinline__ int jacobi_solve(
     const Shared& sh, const Pair& pc, const Rollout2DParams& prm,
     const Lane& L, int P, int S, int sub, float* slab, float* u) {
   constexpr int T = rollout::Layout<G>::kThreads;
@@ -725,6 +754,7 @@ __device__ __forceinline__ void jacobi_solve(
   const float n_total = L.n_total;
   // ---- pass A: geometry and the unclamped elastic impulse ----
   float cnt, dvx_u, dvy_u, dom_u, dqdl_u, dqdr_u;
+  int n_act = 0;
   {
     // act, the impulse's x, y, moment, left and right jaw parts
     double s[6];
@@ -743,6 +773,7 @@ __device__ __forceinline__ void jacobi_solve(
       float imp = q.act * q.me_n * dv_el;
       float sl = q.is_l ? 1.0f : 0.0f;
       s[0] = s[0] + (double)q.act;
+      n_act += q.act != 0.0f;
       s[1] = s[1] + (double)(imp * q.nx);
       s[2] = s[2] + (double)(imp * q.ny);
       s[3] = s[3] + (double)(imp * q.rxn);
@@ -921,6 +952,7 @@ __device__ __forceinline__ void jacobi_solve(
     }
     u[2] = u[2] + group_sum<G>(s_w) * pc.inv_i;
   }
+  return n_act;
 }
 
 template <int G, int Solver>
@@ -931,7 +963,7 @@ rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
                  const float* __restrict__ support,   // (B, S, 4)
                  const float* __restrict__ scalars,   // (B, 1, 16)
                  const float* __restrict__ poses,     // (N, 3)
-                 float* __restrict__ out,             // (8, B, N)
+                 float* __restrict__ out,             // (9, B, N)
                  int B, int P, int S, int N, Rollout2DParams prm) {
   using LO = rollout::Layout<G>;
   constexpr int kThreads = LO::kThreads;
@@ -1015,6 +1047,7 @@ rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
   float vx = 0.f, vy = 0.f, om = 0.f, zb = 0.f, vz = 0.f;
   float ql = 0.f, qr = 0.f, qdl = 0.f, qdr = 0.f;
   float cnt_f = 0.f, cnt_c = 0.f;
+  int n_con = 0;   // the lane's points in contact, summed over its solves
   float scx = com_x, scy = com_y, sth = theta0;
   const float dt = prm.dt;
 
@@ -1063,13 +1096,13 @@ rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
       vz = vz + dt * (-prm.gravity + n_total * pc.inv_m);
       float u[5] = {L.uu[0], L.uu[1], L.uu[2], L.uu[3], L.uu[4]};
       if (Solver == kJacobi) {
-        jacobi_solve<G>(sh, pc, prm, L, P, S, sub, slab, u);
+        n_con += jacobi_solve<G>(sh, pc, prm, L, P, S, sub, slab, u);
         cnt_f = cnt_f + 1.0f;
       } else {
         bool near = (cy <= pc.broad_a + ql) || (cy >= pc.broad_b + qr);
         const bool any_f = vote.any(near);
         if (any_f) {
-          full_solve<G>(sh, pc, prm, L, P, S, sub, slab, u);
+          n_con += full_solve<G>(sh, pc, prm, L, P, S, sub, slab, u);
           cnt_f = cnt_f + 1.0f;
         } else {
           cheap_solve<G>(sh, pc, prm, L, S, sub, u);
@@ -1092,6 +1125,11 @@ rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
   if (prm.snapshot_step <= 0 || prm.snapshot_step >= prm.steps) {
     scx = cx; scy = cy; sth = th;
   }
+  // the rollout's points in contact over its solves, exact in float32
+  // while P * steps < 2^24 (384 points x 8,000 steps: 3.1e6)
+#pragma unroll
+  for (int m = G / 2; m >= 1; m >>= 1)
+    n_con += __shfl_xor_sync(0xffffffffu, n_con, m);
   if (sub != 0) return;   // one lane of the rollout writes it out
 
   const float two_pi = 6.28318530717958647692f;   // float32(2 pi)
@@ -1116,6 +1154,7 @@ rollout2d_kernel(const float* __restrict__ coefs,     // (B, 2, 6, 4)
   out[5 * plane + o] = org_y;
   out[6 * plane + o] = cnt_f;
   out[7 * plane + o] = cnt_c;
+  out[8 * plane + o] = (float)n_con;
 }
 
 }  // namespace

@@ -12,7 +12,9 @@ shared pose batch and runs every (pair, pose) rollout for all steps:
 
 The kernel gives a rollout 16 threads of a warp (a 128-pose group is one
 thread block cluster) and holds each thread's per-point contact geometry in
-shared memory; ``LAST_PLAN`` holds the layout of the last launch. It has two
+shared memory (the Newton solve keeps the points in contact only, and its
+contour passes visit those); ``LAST_PLAN`` holds the layout of the last
+launch. It has two
 instantiations, one per contact solver (``engine2d.SOLVER``, resolved at
 call time unless ``solver`` is given): the coupled Newton solve and the
 projected Jacobi solve (``pallas2d.py:221-334``), whose per-point
@@ -118,7 +120,7 @@ def _check_inputs(coefs, contour, support, scalars, poses):
 
 def rollout_cuda(coefs, contour, support, scalars, poses, steps,
                  regrasp_every, snapshot_step, solver=None):
-    """Launch csrc/rollout2d.cu on the current stream -> (8, B, N) float32.
+    """Launch csrc/rollout2d.cu on the current stream -> (9, B, N) float32.
     The launcher refuses a point count whose shared-memory slab does not
     fit a block: on the H100 P > 384 (Newton) or, with 64 supports, P > 272
     (Jacobi, 12 floats a contour point and 3 a support point)."""
@@ -127,7 +129,7 @@ def rollout_cuda(coefs, contour, support, scalars, poses, steps,
         poses.shape[0]
     return native.launch(
         LIBRARY.get().rollout2d_launch,
-        (coefs, contour, support, scalars, poses), (8, b, n), (b, p, s, n),
+        (coefs, contour, support, scalars, poses), (9, b, n), (b, p, s, n),
         _params(steps, regrasp_every, snapshot_step, solver), LAST_PLAN,
         KERNEL_LAUNCHES, COUNTER[solver])
 
@@ -136,8 +138,10 @@ def rollout(coefs, contour, support, scalars, poses,
             steps: int = SIM.steps_2d, regrasp_every: int = 0,
             snapshot_step: int = 0,
             solver: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
-    """The 8 raw (B, N) outputs: dtheta, dpx, dpy (snapshot), final theta,
-    final x, final y, full-solve and cheap-solve step counts per block.
+    """The 9 raw (B, N) outputs: dtheta, dpx, dpy (snapshot), final theta,
+    final x, final y, full-solve and cheap-solve step counts per block, and
+    the rollout's contour points in contact summed over its full solves
+    (Newton) or its solves (Jacobi).
     ``solver``: "newton" or "jacobi"; None reads ``engine2d.SOLVER`` now."""
     _check_inputs(coefs, contour, support, scalars, poses)
     solver = resolve_solver(solver)
@@ -157,17 +161,18 @@ def profile_batch(coefs, contour, support, scalars, poses,
                   snapshot_step: int = 0, solver: Optional[str] = None):
     """Fused rollouts: (B pairs) x (N poses) -> (dtheta (B, N),
     dpos (B, N, 2), final_theta (B, N), final_pos (B, N, 2)); ``rollout``
-    also returns the (full, cheap) solve counts per block.
+    also returns the (full, cheap) solve counts per block and the
+    contact count per rollout.
 
     ``snapshot_step`` > 0 records dtheta/dpos at that step (the first-squeeze
     profile of the eval schedule) while the rollout continues to ``steps``;
     0 snapshots at the end (datagen). The contact solver is ``solver`` or,
     when None, ``engine2d.SOLVER`` at call time (as the JAX package's
     ``profile_batch_pallas`` resolves it)."""
-    dth, dpx, dpy, fth, fpx, fpy, _, _ = rollout(
+    dth, dpx, dpy, fth, fpx, fpy = rollout(
         coefs, contour, support, scalars, poses, steps=steps,
         regrasp_every=regrasp_every, snapshot_step=snapshot_step,
-        solver=solver)
+        solver=solver)[:6]
     return (dth, torch.stack([dpx, dpy], dim=-1), fth,
             torch.stack([fpx, fpy], dim=-1))
 

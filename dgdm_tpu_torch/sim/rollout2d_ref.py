@@ -95,9 +95,11 @@ def profile_batch_ref(
     sum_group: int = 0,
     solver: Optional[str] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Returns 8 (B, N) float32 tensors: dtheta, dpx, dpy at the snapshot;
-    final theta (in [0, 2pi)), final origin x, y; and the per-block full and
-    cheap solve step counts (lane-broadcast). ``sum_group`` = G adds the
+    """Returns 9 (B, N) float32 tensors: dtheta, dpx, dpy at the snapshot;
+    final theta (in [0, 2pi)), final origin x, y; the per-block full and
+    cheap solve step counts (lane-broadcast); and each rollout's contour
+    points in contact (act) summed over its block's full solves (Newton) or
+    its solves (Jacobi). ``sum_group`` = G adds the
     point sums in the order of the CUDA kernel with G threads a rollout (0:
     ``torch.sum``'s own; ``point_sum``). ``solver``: "newton" or "jacobi",
     None for ``engine2d.SOLVER``."""
@@ -154,7 +156,7 @@ def profile_batch_ref(
     cx, cy, th = com_x, com_y, theta0 + zero
     vx, vy, om, zb, vz = zero, zero, zero, zero, zero
     ql, qr, qdl, qdr = zero, zero, zero, zero
-    cnt_f, cnt_c = zero, zero
+    cnt_f, cnt_c, cnt_a = zero, zero, zero
     scx, scy, sth = com_x + zero, com_y + zero, theta0 + zero
 
     ctrl_l = min(SIM.ctrl_2d, g.ctrl_clamped)
@@ -213,7 +215,7 @@ def profile_batch_ref(
                 me_n, me_t, vn0)
 
     def normal_step(cx, cy, th, vx, vy, om, zb, vz, ql, qr, qdl, qdr,
-                    cnt_f, cnt_c):
+                    cnt_f, cnt_c, cnt_a):
         c, s = torch.cos(th), torch.sin(th)
         depth_z = SIM.plane_z - zb
         n_total = mass * torch.clamp(K_PLANE * depth_z - B_PLANE * vz, min=0.0)
@@ -369,7 +371,7 @@ def profile_batch_ref(
                 u = [torch.where(take_new,
                                  torch.where(best12, u1[a], u2[a]), u[a])
                      for a in range(5)]
-            return u
+            return u, rsum(act)
 
         def cheap_solve():
             # no finger contact anywhere in the block: plane friction +
@@ -446,11 +448,11 @@ def profile_batch_ref(
         maybe = (cy <= broad_a + ql) | (cy >= broad_b + qr)
         any_f = _block_any(maybe)                       # (B, NB, 1)
         if bool(any_f.all()):
-            u = full_solve()
+            u, n_act = full_solve()
         elif not bool(any_f.any()):
-            u = cheap_solve()
+            u, n_act = cheap_solve(), zero
         else:
-            uf, uc = full_solve(), cheap_solve()
+            (uf, n_act), uc = full_solve(), cheap_solve()
             u = [torch.where(any_f, a_, c_) for a_, c_ in zip(uf, uc)]
         vx, vy, om, qdl, qdr = u
         mf = any_f.to(torch.float32)
@@ -458,10 +460,10 @@ def profile_batch_ref(
         cnt_c = cnt_c + (1.0 - mf)
         return (cx + dt * vx, cy + dt * vy, th + dt * om, vx, vy, om,
                 zb + dt * vz, vz, ql + dt * qdl, qr + dt * qdr, qdl, qdr,
-                cnt_f, cnt_c)
+                cnt_f, cnt_c, cnt_a + mf * n_act)
 
     def jacobi_step(cx, cy, th, vx, vy, om, zb, vz, ql, qr, qdl, qdr,
-                    cnt_f, cnt_c):
+                    cnt_f, cnt_c, cnt_a):
         # projected Jacobi (pallas2d.py:221-334): every normal step is a
         # full solve of the merged contact set
         c, s = torch.cos(th), torch.sin(th)
@@ -475,7 +477,8 @@ def profile_batch_ref(
                                              vx, vy, om, qdl, qdr)
         sl = is_l.to(torch.float32)
         sr = 1.0 - sl
-        cnt = torch.clamp(rsum(act), min=1.0)[:, :, None]
+        n_act = rsum(act)
+        cnt = torch.clamp(n_act, min=1.0)[:, :, None]
         w_c = act / cnt
         # implicit stopping target from the base solref gains; the calib
         # gains drive the explicit elastic wedge term
@@ -567,17 +570,17 @@ def profile_batch_ref(
             lam_w = new_w
         return (cx + dt * vx, cy + dt * vy, th + dt * om, vx, vy, om,
                 zb + dt * vz, vz, ql + dt * qdl, qr + dt * qdr, qdl, qdr,
-                cnt_f + 1.0, cnt_c)
+                cnt_f + 1.0, cnt_c, cnt_a + n_act)
 
     def travel_step(cx, cy, th, vx, vy, om, zb, vz, ql, qr, qdl, qdr,
-                    cnt_f, cnt_c):
+                    cnt_f, cnt_c, cnt_a):
         # settled-travel fast path: only the finger servos advance
         f_l = g.kp * (ctrl_l - ql) - g.joint_damping * qdl
         f_r = g.kp * (ctrl_r - qr) - g.joint_damping * qdr
         qdl = qdl + dt * f_l * inv_fml
         qdr = qdr + dt * f_r * inv_fmr
         return (cx, cy, th, vx, vy, om, zb, vz,
-                ql + dt * qdl, qr + dt * qdr, qdl, qdr, cnt_f, cnt_c)
+                ql + dt * qdl, qr + dt * qdr, qdl, qdr, cnt_f, cnt_c, cnt_a)
 
     solve_step = normal_step if solver == "newton" else jacobi_step
     for i in range(steps):
@@ -602,7 +605,8 @@ def profile_batch_ref(
         if is_rg:
             travel = torch.zeros_like(travel)
 
-        st = (cx, cy, th, vx, vy, om, zb, vz, ql, qr, qdl, qdr, cnt_f, cnt_c)
+        st = (cx, cy, th, vx, vy, om, zb, vz, ql, qr, qdl, qdr, cnt_f, cnt_c,
+              cnt_a)
         if bool(travel.all()):
             st = travel_step(*st)
         elif not bool(travel.any()):
@@ -611,7 +615,7 @@ def profile_batch_ref(
             st = tuple(torch.where(travel, a_, n_) for a_, n_ in
                        zip(travel_step(*st), solve_step(*st)))
         (cx, cy, th, vx, vy, om, zb, vz, ql, qr, qdl, qdr,
-         cnt_f, cnt_c) = st
+         cnt_f, cnt_c, cnt_a) = st
         if i + 1 == snapshot_step:
             scx, scy, sth = cx, cy, th
 
@@ -629,5 +633,5 @@ def profile_batch_ref(
     org_y = cy - (s * com_bx + c * com_by)
     outs = (d_theta, sorg_x - pose_x, sorg_y - pose_y,
             torch.remainder(th, two_pi), org_x, org_y,
-            cnt_f.expand(b, nb, LANE), cnt_c.expand(b, nb, LANE))
+            cnt_f.expand(b, nb, LANE), cnt_c.expand(b, nb, LANE), cnt_a)
     return tuple(o.expand(b, nb, LANE).reshape(b, n) for o in outs)

@@ -21,7 +21,8 @@ gives every instantiation's count of SASS instructions, of shuffles
 and encodings equal the other build's (equal code is a finding, unequal
 code not one by itself: ptxas has given K2's Newton instantiations other
 code from the same source in a second build). For each kernel the two
-builds are held bitwise equal on every output plane at the point counts of
+builds are held bitwise equal on the output planes both write (K2's 12, K1's
+first 8: an earlier K1 writes no contact count) at the point counts of
 its card tests (K2: the kernel's golden fixture's pairs and poses with
 their first 256, 200 and 17 points, 800 steps; K1: its fixture's with the
 contour repeated to 100, 272 and 17 points, and for ``k1_newton`` to 384,
@@ -42,6 +43,12 @@ held bitwise equal) at chip_smoke.py's shapes, built by
   steps, regrasp and snapshot at 200 (``k1_jacobi``, ``k1_newton``);
 - the Jacobi kernels' datagen shape with no sweeps (``solver_iters`` 0):
   the passes before them and the step's other work.
+
+Beside each K1 case and timed shape it prints the contact share of this
+build's solves: K1's plane 8 (each rollout's contour points in contact over
+its full solves, or its solves with Jacobi) over P times plane 6 (its full
+or Jacobi solve steps), the share of point visits that the Newton solve's
+compacted contour passes keep.
 """
 
 from __future__ import annotations
@@ -91,6 +98,8 @@ def library(mod, checkout: str) -> native.NativeLibrary:
 
 
 SASS_OPS = ("SHFL", "F2F.F64.F32", "F2F.F32.F64", "DADD")
+# output planes that every build of the kernel writes
+SHARED_PLANES = {rollout2d: 8, rollout3d: 12}
 
 
 def sass(so: str) -> dict:
@@ -127,9 +136,15 @@ def sass(so: str) -> dict:
     return out
 
 
-def same(x, y) -> list:
-    """Indices of the output planes that differ."""
-    return [i for i, (a, b) in enumerate(zip(x, y)) if not torch.equal(a, b)]
+def same(x, y, planes: int) -> list:
+    """Indices of the first ``planes`` output planes that differ."""
+    return [i for i, (a, b) in enumerate(zip(x[:planes], y[:planes]))
+            if not torch.equal(a, b)]
+
+
+def contact_share(out, p: int) -> float:
+    """K1's points in contact over the point visits of its solves."""
+    return float(out[8].double().sum() / (p * out[6].double().sum()))
 
 
 def main(argv=None) -> int:
@@ -189,12 +204,17 @@ def main(argv=None) -> int:
             t, (o, plan) = timed(lambda: run(mod, which, *args_, **kw))
             ms[which].append(t)
             outs[which], plans[which] = o, plan
-        diff = same(outs["this"], outs["other"])
-        print(f"  {name}: ms {ms}; planes differing {diff}; plans {plans}",
-              flush=True)
+        diff = same(outs["this"], outs["other"], SHARED_PLANES[mod])
+        row = {"ms": ms, "plans": plans}
+        if mod is rollout2d:
+            row["contact_share"] = contact_share(outs["this"],
+                                                 args_[1].shape[1])
+        print(f"  {name}: ms {ms}; planes differing {diff}; plans {plans}"
+              + (f"; contact share {row['contact_share']:.5f}"
+                 if "contact_share" in row else ""), flush=True)
         if diff:
             raise SystemExit(f"{name}: the two kernels differ on {diff}")
-        return {"ms": ms, "plans": plans}, outs["this"]
+        return row, outs["this"]
 
     k2 = k1 = None
     for kname in kernels:
@@ -231,9 +251,12 @@ def main(argv=None) -> int:
                             **kw)
             o_other, _ = run(mod, "other", *arrs, gposes, *sched,
                              solver=solver, **kw)
-            diff = same(o_this, o_other)
+            diff = same(o_this, o_other, SHARED_PLANES[mod])
             r["points"][case] = diff
-            print(f"  {case}: planes differing {diff}", flush=True)
+            share = "" if mod is rollout3d else (
+                f"; contact share "
+                f"{contact_share(o_this, arrs[1].shape[1]):.5f}")
+            print(f"  {case}: planes differing {diff}{share}", flush=True)
             if diff:
                 raise SystemExit(f"{kname} {case}: the kernels differ on "
                                  f"{diff}")
