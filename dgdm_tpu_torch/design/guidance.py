@@ -112,10 +112,16 @@ class GuidedSampler2D:
         eps = eps - torch.sqrt(1.0 - abar) * g * scale
         return ddim.ddim_step(self.sched, eps, t, pt, x)
 
+    @TRACER.traced("guidance.encode")
+    def _encode_objects(self, objs: torch.Tensor) -> torch.Tensor:
+        """objs (K, obj_dims...) -> (K, W) features (the 3D classifier's
+        object encoder is PointNet++)."""
+        with torch.no_grad():
+            return self.classifier.encode_object(objs)
+
     def _encode_object(self, obj: torch.Tensor) -> torch.Tensor:
         """obj (obj_dims...) -> (W,) feature."""
-        with torch.no_grad():
-            return self.classifier.encode_object(obj[None])[0]
+        return self._encode_objects(obj[None])[0]
 
     def _objective_weights(
         self, objective: str, centers: Optional[torch.Tensor], batch: int
@@ -275,8 +281,7 @@ class GuidedSampler2D:
         """(obj_feats, weights, rsq, scales, labels) for sample_sweep from
         objective names x objects; skips 'convergence'; labels[i] =
         (objective, object_index)."""
-        with torch.no_grad():
-            feats = self.classifier.encode_object(self._tensor(obj_flats))
+        feats = self._encode_objects(self._tensor(obj_flats))
         labels, w_rows, r_rows, s_rows, f_rows = [], [], [], [], []
         for name in objectives:
             if name == "convergence":
@@ -306,9 +311,7 @@ class GuidedSampler2D:
             poses = self._poses(ori_range)
             weights, rotate_sq = self._objective_weights(objective, None,
                                                          x.shape[0])
-            with torch.no_grad():
-                obj_feats = self.classifier.encode_object(
-                    self._tensor(obj_flats))
+            obj_feats = self._encode_objects(self._tensor(obj_flats))
             scale = self._tensor(scale)
         for t, pt in self._schedule():
             with TRACER.span("guidance.step"):

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from dgdm_tpu_torch.core.config import NORM, SIM
+from dgdm_tpu_torch.core.profiling import TRACER
 from dgdm_tpu_torch.eval.metrics import three_class, wrap_pi
 from dgdm_tpu_torch.geom.fingers import denormalize_y
 from dgdm_tpu_torch.parallel.mesh import all_gather_rows
@@ -94,38 +95,46 @@ def sim_eval_batch_3d(
     mesh, y_local = datagen.dp_split(y)
     results = []
     for verts, faces in objects:
-        # object host work shared across the gripper batch
-        obj_props = engine3d.object_properties_3d(verts, faces)
-        stacked = datagen.stack_scenes([
-            engine3d.make_scene(yi[:n], yi[n:], verts, faces,
-                                obj_props=obj_props)
-            for yi in y_local])
-        arrs = rollout3d.scene_arrays_3d(stacked, calib=calib, device=device)
-        d_theta, d_pos, f_theta, _valid, f_pos = (
-            all_gather_rows(mesh, t[:, :num_rot].cpu().numpy())
-            for t in rollout3d.profile_batch(
+        with TRACER.span("simeval3d.object"):
+            # object host work shared across the gripper batch
+            obj_props = engine3d.object_properties_3d(verts, faces)
+        with TRACER.span("simeval3d.scenes"):
+            stacked = datagen.stack_scenes([
+                engine3d.make_scene(yi[:n], yi[n:], verts, faces,
+                                    obj_props=obj_props)
+                for yi in y_local])
+        with TRACER.span("simeval3d.arrays"):
+            arrs = rollout3d.scene_arrays_3d(stacked, calib=calib,
+                                             device=device)
+        with TRACER.span("simeval3d.rollout"):
+            outs = rollout3d.profile_batch(
                 *arrs, poses, steps=total_steps,
-                regrasp_every=regrasp_every, snapshot_step=regrasp_every))
-        for i in range(b):
-            fdt = np.asarray(
-                [wrap_pi(f - t0) for f, t0 in zip(f_theta[i], thetas)]
-            )
-            results.append(
-                {
-                    "delta_theta": d_theta[i] * 180 / np.pi,
-                    "delta_pos": np.concatenate(
-                        [d_pos[i], np.zeros((num_rot, 1))], -1
-                    ) * 100,
-                    "profile": three_class(d_theta[i], th3[0]),
-                    "profile_x": three_class(d_pos[i][:, 0], th3[1]),
-                    "profile_y": three_class(d_pos[i][:, 1], th3[2]),
-                    "final_theta": f_theta[i] * 180 / np.pi,
-                    "final_delta_theta": fdt * 180 / np.pi,
-                    # eval poses start at the origin: the final delta is the
-                    # absolute origin
-                    "final_pos": np.concatenate(
-                        [f_pos[i], np.zeros((num_rot, 1))], -1
-                    ) * 100,
-                }
-            )
+                regrasp_every=regrasp_every, snapshot_step=regrasp_every)
+        with TRACER.span("simeval3d.fetch"):
+            d_theta, d_pos, f_theta, _valid, f_pos = (
+                all_gather_rows(mesh, t[:, :num_rot].cpu().numpy())
+                for t in outs)
+        with TRACER.span("simeval3d.metrics"):
+            for i in range(b):
+                fdt = np.asarray(
+                    [wrap_pi(f - t0) for f, t0 in zip(f_theta[i], thetas)]
+                )
+                results.append(
+                    {
+                        "delta_theta": d_theta[i] * 180 / np.pi,
+                        "delta_pos": np.concatenate(
+                            [d_pos[i], np.zeros((num_rot, 1))], -1
+                        ) * 100,
+                        "profile": three_class(d_theta[i], th3[0]),
+                        "profile_x": three_class(d_pos[i][:, 0], th3[1]),
+                        "profile_y": three_class(d_pos[i][:, 1], th3[2]),
+                        "final_theta": f_theta[i] * 180 / np.pi,
+                        "final_delta_theta": fdt * 180 / np.pi,
+                        # eval poses start at the origin: the final delta
+                        # is the absolute origin
+                        "final_pos": np.concatenate(
+                            [f_pos[i], np.zeros((num_rot, 1))], -1
+                        ) * 100,
+                    }
+                )
     return results

@@ -16,6 +16,7 @@ The sheet comes from ``BSplineSurfaceY.height`` in float32 and feeds
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -32,8 +33,10 @@ from dgdm_tpu_torch.geom.spline import (
 DEFAULT_DECOMPS: Tuple[Tuple[int, int], ...] = ((12, 2),)
 
 
-def _surface_grid(y_ctrl: np.ndarray, sample_size: int = 25) -> np.ndarray:
-    """(S, S, 3) surface points on the geomdl grid (x varies along axis 0)."""
+@functools.lru_cache(maxsize=None)
+def _grid_xz(sample_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The geomdl grid's x and z of every point, which do not depend on the
+    control values (shared between calls: not to be written to)."""
     g = GRIPPER_3D
     uu = np.linspace(0, 1, sample_size)
     ku = clamped_knot_vector(g.degree_u, g.nu)
@@ -46,6 +49,13 @@ def _surface_grid(y_ctrl: np.ndarray, sample_size: int = 25) -> np.ndarray:
     )
     gx = np.repeat(xs, sample_size)
     gz = np.tile(zs, sample_size)
+    return gx, gz
+
+
+def _surface_grid(y_ctrl: np.ndarray, sample_size: int = 25) -> np.ndarray:
+    """(S, S, 3) surface points on the geomdl grid (x varies along axis 0)."""
+    g = GRIPPER_3D
+    gx, gz = _grid_xz(sample_size)
     ys = gripper3d_surface().height(
         *(torch.as_tensor(a, dtype=torch.float32) for a in
           (np.asarray(y_ctrl).reshape(g.nu, g.nv), gx, gz))
@@ -94,7 +104,10 @@ def _patch_upper_facets(sheet: np.ndarray):
 
 def _envelope_one(y_ctrl: np.ndarray, qx: np.ndarray, qz: np.ndarray,
                   nx_slabs: int, nz_slabs: int, sample_size: int):
-    """Upper envelope (height, dy/dx, dy/dz) of one decomposition."""
+    """Upper envelope (height, dy/dx, dy/dz) of one decomposition. Each
+    patch's facets are evaluated at the query points over its own x-z
+    footprint only (every other point keeps its value), so a query costs
+    the patches around it rather than all of them."""
     grid = _surface_grid(np.asarray(y_ctrl), sample_size)   # (S, S, 3)
     bx = np.linspace(0, sample_size - 1, nx_slabs + 1).astype(int)
     bz = np.linspace(0, sample_size - 1, nz_slabs + 1).astype(int)
@@ -106,24 +119,25 @@ def _envelope_one(y_ctrl: np.ndarray, qx: np.ndarray, qz: np.ndarray,
             sheet = grid[bx[i]: bx[i + 1] + 1,
                          bz[j]: bz[j + 1] + 1].reshape(-1, 3)
             up = _patch_upper_facets(sheet)
-            ys = (
-                -up[:, 3][None, :]
-                - up[:, 0][None, :] * qx[:, None]
-                - up[:, 2][None, :] * qz[:, None]
-            ) / up[:, 1][None, :]
-            k = np.argmin(ys, 1)
-            y_here = ys[np.arange(len(qx)), k]
-            inside = (
+            inside = np.nonzero(
                 (qx >= sheet[:, 0].min() - 1e-9)
                 & (qx <= sheet[:, 0].max() + 1e-9)
                 & (qz >= sheet[:, 2].min() - 1e-9)
                 & (qz <= sheet[:, 2].max() + 1e-9)
-            )
-            take = inside & (y_here > y_env)
-            y_env = np.where(take, y_here, y_env)
-            nrm = up[k]
-            sx = np.where(take, -nrm[:, 0] / nrm[:, 1], sx)
-            sz = np.where(take, -nrm[:, 2] / nrm[:, 1], sz)
+            )[0]
+            ys = (
+                -up[:, 3][None, :]
+                - up[:, 0][None, :] * qx[inside, None]
+                - up[:, 2][None, :] * qz[inside, None]
+            ) / up[:, 1][None, :]
+            k = np.argmin(ys, 1)
+            y_here = ys[np.arange(len(inside)), k]
+            take = y_here > y_env[inside]
+            at = inside[take]
+            y_env[at] = y_here[take]
+            nrm = up[k[take]]
+            sx[at] = -nrm[:, 0] / nrm[:, 1]
+            sz[at] = -nrm[:, 2] / nrm[:, 1]
     return y_env, sx, sz
 
 

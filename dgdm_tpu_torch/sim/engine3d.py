@@ -50,6 +50,7 @@ import torch
 
 from dgdm_tpu_torch.core.cache import LRU
 from dgdm_tpu_torch.core.config import GRIPPER_3D, SIM
+from dgdm_tpu_torch.core.profiling import TRACER
 from dgdm_tpu_torch.sim.engine2d import (
     B_CONTACT,
     DEPTH_EL_CAP,
@@ -294,7 +295,8 @@ def make_scene(
     ``rollout3d.scene_arrays_3d`` moves a stacked batch to the device. The
     height grid is left unset (``with_hgrid`` fills it)."""
     g = GRIPPER_3D
-    fmass = _gripper_host_work(np.asarray(yl), np.asarray(yr))
+    with TRACER.span("scene3d.fingers"):
+        fmass = _gripper_host_work(np.asarray(yl), np.asarray(yr))
     if obj_props is None:
         obj_props = object_properties_3d(verts, faces, num_points, seed)
     mass, com, inertia, pts, corner_w = obj_props

@@ -37,6 +37,7 @@ import torch
 from dgdm_tpu_torch.core import native
 from dgdm_tpu_torch.core.cache import LRU
 from dgdm_tpu_torch.core.config import GRIPPER_3D, SIM
+from dgdm_tpu_torch.core.profiling import TRACER
 from dgdm_tpu_torch.core.transfer import upload
 from dgdm_tpu_torch.sim import engine3d
 from dgdm_tpu_torch.sim.engine2d import Calib
@@ -215,8 +216,13 @@ def scene_arrays_3d(scenes, calib: Optional[Calib] = None,
     mode = engine3d.CONTACT_SURFACE_3D.encode()
     keys = [both[i].tobytes() + sides[i].encode() + mode
             for i in range(2 * b)]
-    rows = _FIT_CACHE.get_many(keys, lambda miss: fit_surface_batch(
-        both[miss], sides=[sides[i] for i in miss]))
+
+    def fit(miss):
+        with TRACER.span("scene3d.fit"):
+            return fit_surface_batch(both[miss],
+                                     sides=[sides[i] for i in miss])
+
+    rows = _FIT_CACHE.get_many(keys, fit)
     fitted = np.stack(rows)                          # (2B, TOT_SEG, 4, 3)
     coefs = np.stack([fitted[:b], fitted[b:]], axis=1).astype(np.float32)
     pts = scenes.points.numpy()
